@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive ray_tpu_torch's serving path on one NVIDIA H100.
+"""Drive ray_tpu_torch's serving and training paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each on stdout:
   1. device  - requires CUDA; prints `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   - compiles both CUDA kernels from csrc/ (nvcc, in parallel).
+  2. build   - compiles the CUDA kernels from csrc/ (nvcc, in parallel).
   3. parity  - each kernel against its plain PyTorch version on the card,
                at the 8B shapes and edge cases, with stated tolerances.
   4. engine  - Llama-3-8B (full width and depth, bf16, random weights from
@@ -13,14 +13,20 @@ Phases, one JSON line each on stdout:
                chunked-prefill engine serving one 511-token request; checks
                the kernels' launch counts, and paged vs gather decode on one
                cache state.
-  5. reference - a small f32 model served on the card and on the CPU from
-               the same weights: greedy streams must be identical.
-  6. timing  - kernel, plain-version and library times, and the bound.
+  5. train   - Llama-3-8B (full width and depth, bf16, seed 7, remat
+               "full") trained by make_train_step with AdamW at B=1,
+               S=2048: one warm-up step, then 3 timed steps on one batch;
+               checks the loss falls, the launch counts, the peak memory.
+  6. reference - a small f32 model served, then trained 3 steps, on the
+               card and on the CPU from the same weights: identical greedy
+               streams, and the same losses and params.
+  7. timing  - kernel, plain-version and library times, and the bound.
 A comma-separated list of phases runs only those and prints no result;
-`profile` (not in the default run) traces one 511-token prefill and one
-decode burst of the 8B engine with torch.profiler:
+`profile` and `profile_train` (not in the default run) trace, with
+torch.profiler, one 511-token prefill and one decode burst of the 8B
+engine, and one 8B training step:
 
-    python3 chip_smoke.py build,profile
+    python3 chip_smoke.py build,profile,profile_train
 The line before the last is the `kernels` line; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -28,6 +34,7 @@ The line before the last is the `kernels` line; the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -97,8 +104,21 @@ FLASH_CASES = [
     ("f32_sq_gt_skv", 2, 96, 64, 4, 2, 64, True, "f32", False),
 ]
 
+BWD_CASES = [
+    # name, B, Sq, Skv, Hq, Hkv, D, causal, dtype
+    ("8b_train", 1, 2048, 2048, 32, 8, 128, True, "bf16"),
+    ("sq_lt_skv", 1, 128, 384, 8, 2, 128, True, "bf16"),
+    ("ragged_100", 2, 100, 100, 4, 2, 128, True, "bf16"),
+    ("sq_gt_skv", 2, 96, 64, 4, 2, 128, True, "bf16"),
+    ("non_causal", 2, 256, 256, 8, 8, 128, False, "bf16"),
+    ("d64", 1, 200, 200, 8, 4, 64, True, "bf16"),
+    ("f32", 2, 130, 100, 4, 1, 128, True, "f32"),
+]
+
 # B, kvh, rep, hd, page, n_pages, K
 PAGED_8B = (8, 8, 4, 128, 64, 16, 8)
+
+TRAIN_B, TRAIN_S = 1, 2048     # the 8B training batch
 
 
 def _flash_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, strided, seed=0):
@@ -136,8 +156,28 @@ def _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, dtype, seed=0):
     return [q, ck, cv, nk, nv, bt, ctx, new_len]
 
 
+def _bwd_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, causal, seed=0):
+    """q, k, v, O and LSE from the forward kernel, a seeded dO, and
+    D = rowsum(dO * O) in f32 [B, Hq, Sq]."""
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    q, k, v = _flash_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, False,
+                            seed)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator("cuda").manual_seed(seed + 100)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, dvec
+
+
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _rel_err(a, b):
+    """max |a - b| / max |b|: the reference's bf16 measure
+    (tests/test_ops.py)."""
+    return _max_err(a, b) / (float(b.float().abs().max()) + 1e-6)
 
 
 def _close(torch, got, want, tol):
@@ -213,7 +253,53 @@ def phase_parity(torch):
               "max_abs_err": err, "tol": tol, "ok": ok})
         require(ok, f"paged_decode parity failed: {name}")
         results.setdefault("paged_decode", []).append(err)
+
+    for name, B, Sq, Skv, Hq, Hkv, D, causal, dtype in BWD_CASES:
+        for kernel, err in _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D,
+                                       causal, dtype).items():
+            results.setdefault(kernel, []).append(err)
     return {k: max(v) for k, v in results.items()}
+
+
+def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
+    """Both backward kernels against their plain versions on one case:
+    bf16 within the reference's relative 2e-2 (max error over the largest
+    magnitude), f32 within 1e-4 abs/rel; rows that see no key (causal,
+    Sq > Skv) must give exactly 0, and nothing may be NaN."""
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv,
+                                             flash_bwd_dkv_reference,
+                                             flash_bwd_dq,
+                                             flash_bwd_dq_reference)
+
+    args = _bwd_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, causal)
+    outs = {"flash_bwd_dq": ((flash_bwd_dq(*args, causal=causal),),
+                             (flash_bwd_dq_reference(*args, causal=causal),)),
+            "flash_bwd_dkv": (flash_bwd_dkv(*args, causal=causal),
+                              flash_bwd_dkv_reference(*args, causal=causal))}
+    torch.cuda.synchronize()
+    errs = {}
+    for kernel, (got, want) in outs.items():
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        if dtype == "bf16":
+            err = max(_rel_err(g, w) for g, w in zip(got, want))
+            tol, measure = 2e-2, "max_err_over_max"
+            ok = err < tol
+        else:
+            err = max(_max_err(g, w) for g, w in zip(got, want))
+            tol, measure = 1e-4, "max_abs_err"
+            ok = all(_close(torch, g, w, tol) for g, w in zip(got, want))
+        ok = ok and finite and all(g.dtype == args[0].dtype for g in got)
+        masked_zero = None
+        if kernel == "flash_bwd_dq" and causal and Sq > Skv:
+            masked_zero = bool((got[0][:, :Sq - Skv] == 0).all())
+            ok = ok and masked_zero
+        emit({"phase": "parity", "kernel": kernel, "case": name,
+              "shape": [B, Sq, Skv, Hq, Hkv, D], "causal": causal,
+              "dtype": dtype, measure: err, "tol": tol, "finite": finite,
+              "masked_rows_zero": masked_zero, "ok": ok})
+        require(ok, f"{kernel} parity failed: {name}")
+        errs[kernel] = max(_max_err(g, w) for g, w in zip(got, want))
+    return errs
 
 
 # --- phase 4 ---------------------------------------------------------------
@@ -369,12 +455,106 @@ def _paged_vs_gather(torch, engine, params, cfg, prompts):
     return outs[True]
 
 
+def _zero_counts():
+    from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
+                                             flash_bwd_dq)
+
+    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv):
+        fn.launches = 0
+
+
+def _train_counts():
+    from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
+                                             flash_bwd_dq)
+
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches}
+
+
+def _model_flops_per_token(cfg, seq):
+    """bench.py's training FLOPs per token: 6 N + causal attention."""
+    from ray_tpu_torch.train import estimate_flops_per_token
+
+    return estimate_flops_per_token(cfg.n_params()) \
+        + 6 * cfg.n_layers * seq * cfg.dim
+
+
+def _build_8b_trainer(torch):
+    """Llama-3-8B (bf16, full width and depth, seed 7, remat "full") under
+    make_train_step with bench.py's optimizer, adamw(3e-4,
+    weight_decay=0.1); one seeded batch of B=1, S=2048."""
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params, lm_loss
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    cfg = LLAMA_CONFIGS["8b"]
+    require(cfg.remat and cfg.remat_policy == "full", "8b remat is not full")
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: lm_loss(p, b, cfg), adamw(3e-4, weight_decay=0.1),
+        device="cuda",
+        model_flops_per_token=_model_flops_per_token(cfg, TRAIN_S))
+    state = init_fn(init_params(cfg, seed=7, device="cuda"))
+    g = torch.Generator().manual_seed(7)
+    batch = place_batch({"tokens": torch.randint(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=g, dtype=torch.int32)})
+    return cfg, state, step_fn, batch
+
+
+def phase_train(torch):
+    """The training path at full width and depth: 1 warm-up step, then 3
+    timed steps on the same batch."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, state, step_fn, batch = _build_8b_trainer(torch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    losses, norms = [m["loss"].item()], [m["grad_norm"].item()]
+
+    _zero_counts()
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    counts = _train_counts()
+    L, steps = cfg.n_layers, 3
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    mean_ms = sum(step_ms) / len(step_ms)
+    tok_s = TRAIN_B * TRAIN_S / (mean_ms / 1e3)
+    flops_per_token = step_fn.model_flops_per_token
+    emit({"phase": "train", "model": "llama3-8b", "dtype": "bf16",
+          "n_layers": L, "remat": cfg.remat_policy, "batch": TRAIN_B,
+          "seq": TRAIN_S, "optimizer": "adamw(3e-4, weight_decay=0.1)",
+          "init_s": init_s, "loss": losses, "grad_norm": norms,
+          "step_ms": step_ms, "mean_step_ms": mean_ms, "tok_s": tok_s,
+          "model_flops_per_token": flops_per_token,
+          "mfu": flops_per_token * tok_s / BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9, "card_mem_gb": total / 1e9,
+          "launches": counts, "expected_launches": want,
+          "step": int(m["step"])})
+    require(all(math.isfinite(x) for x in losses + norms),
+            "a loss or grad norm is not finite")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    require(counts == want, f"train launches {counts}, expected {want}")
+    require(peak < total, "peak memory exceeds the card")
+    require(int(m["step"]) == 4, "the step counter is not 4")
+    return counts
+
+
 def phase_reference(torch):
     """End to end against the CPU on a small input: a 2-layer f32 model
-    (head_dim 128, GQA) served on the card, through both kernels, and on
-    the CPU, through their plain versions, from the same weights. f32
-    matmuls on the card run without TF32, so greedy streams must be
-    identical."""
+    (head_dim 128, GQA) served, then trained, on the card, through the
+    kernels, and on the CPU, through their plain versions, from the same
+    weights. f32 matmuls on the card run without TF32, so greedy streams
+    must be identical."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import LlamaConfig, init_params
 
@@ -406,6 +586,62 @@ def phase_reference(torch):
           "card_equals_cpu_chunked": same[32]})
     require(all(same.values()),
             "greedy streams on the card differ from the CPU's")
+    _reference_train(torch, cfg, params)
+
+
+def _reference_train(torch, cfg, params):
+    """3 training steps of the 2-layer f32 model (remat "full", a ragged
+    S=100 batch with a mask) on the card and on the CPU from the same
+    weights: per-step losses and grad norms within 1e-4 relative, params
+    afterwards within 1e-4. Adam's eps is 1e-4 here: with optax's 1e-8 an
+    element whose gradient is cancellation noise (|g| ~ 1e-8, either sign
+    on the card and on the CPU) would move by up to lr either way."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+    from ray_tpu_torch.models import lm_loss, params_to_numpy
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    cfg = dataclasses.replace(cfg, remat=True, remat_policy="full")
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, (2, 100), generator=g,
+                           dtype=torch.int32)
+    mask = torch.ones_like(tokens)
+    mask[1, 60:] = 0
+    batch = {"tokens": tokens, "mask": mask}
+    runs = {}
+    _zero_counts()
+    for dev in ("cpu", "cuda"):
+        init_fn, step_fn, place_batch = make_train_step(
+            lambda p, b: lm_loss(p, b, cfg), adamw(1e-3, eps=1e-4),
+            device=dev)
+        state = init_fn(tree_map(lambda t: t.to(dev, copy=True), params))
+        placed = place_batch(batch)
+        metrics = []
+        for _ in range(3):
+            state, m = step_fn(state, placed)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[dev] = (metrics, params_to_numpy(state.params))
+    counts = _train_counts()
+    (m_cpu, p_cpu), (m_card, p_card) = runs["cpu"], runs["cuda"]
+    rel = max(abs(a - b) / abs(b) for x, y in zip(m_card, m_cpu)
+              for a, b in zip(x, y))
+    p_err = max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(p_card), tree_leaves(p_cpu)))
+    p_ok = all(np.allclose(a, b, atol=1e-4, rtol=1e-4) for a, b in zip(
+        tree_leaves(p_card), tree_leaves(p_cpu)))
+    emit({"phase": "reference_train", "model": "2-layer f32, head_dim 128",
+          "steps": 3, "loss_grad_norm_card": m_card,
+          "loss_grad_norm_cpu": m_cpu, "max_rel_err": rel,
+          "params_max_abs_err": p_err, "params_ok": p_ok,
+          "card_launches": counts})
+    require(rel < 1e-4, "card and CPU training losses differ")
+    require(p_ok, "card and CPU params differ after 3 steps")
+    require(counts == {"flash_fwd": 12, "flash_bwd_dq": 6,
+                       "flash_bwd_dkv": 6},
+            f"reference training launches {counts}")
 
 
 # --- phase 5 ---------------------------------------------------------------
@@ -493,15 +729,73 @@ def phase_timing(torch, launches, max_err):
                      max_err.get("paged_decode"), ms,
                      plain, nbytes, flops, lib))
     flash_attention.launches, paged_decode_attention.launches = saved
+    rows += _timing_bwd(torch, launches, max_err)
     for r in rows:
         emit({"phase": "timing", **r})
+    return rows
+
+
+def _timing_bwd(torch, launches, max_err):
+    """Both backward kernels at the 8B training shape (B=1, S=2048, 32 q
+    and 8 kv heads, D=128, causal, bf16), and the forward kernel there for
+    comparison. The library yardstick is one SDPA backward (enable_gqa,
+    from a retained graph), which computes dQ, dK and dV together: its
+    time stands on both rows."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
+                                             flash_bwd_dkv_reference,
+                                             flash_bwd_dq,
+                                             flash_bwd_dq_reference)
+
+    saved = _train_counts()
+    _, B, Sq, Skv, Hq, Hkv, D, causal, _ = BWD_CASES[0]
+    args = _bwd_inputs(torch, B, Sq, Skv, Hq, Hkv, D, "bf16", causal)
+    q, k, v, do, lse, dvec = args
+    pairs = sum(min(Skv, max(0, i + Skv - Sq + 1)) for i in range(Sq))
+    mm_flops = 2 * D * pairs * B * Hq        # one causal product
+    fwd_ms = _time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    emit({"phase": "timing_extra", "name": "flash_fwd",
+          "shape": "8b training, B=1, S=2048", "ms": fwd_ms,
+          "flops": 2 * mm_flops,
+          "bound_ms": 2 * mm_flops / BF16_FLOPS * 1e3})
+
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True))
+    del out, leaves
+
+    qb, kb, lb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+    rows = []
+    ms = _time_ms(torch, lambda: flash_bwd_dq(*args))
+    plain = _time_ms(torch, lambda: flash_bwd_dq_reference(*args), iters=3)
+    # read q, k, v, dO, lse, D; write dQ
+    rows.append(_row("flash_bwd_dq", "ray_tpu_torch/csrc/flash_bwd.cu",
+                     "ray_tpu/ops/attention.py:279",
+                     launches.get("flash_bwd_dq", 0),
+                     max_err.get("flash_bwd_dq"), ms, plain,
+                     3 * qb + 2 * kb + 2 * lb, 3 * mm_flops, lib))
+    ms = _time_ms(torch, lambda: flash_bwd_dkv(*args))
+    plain = _time_ms(torch, lambda: flash_bwd_dkv_reference(*args), iters=3)
+    # read q, k, v, dO, lse, D; write dK, dV
+    rows.append(_row("flash_bwd_dkv", "ray_tpu_torch/csrc/flash_bwd.cu",
+                     "ray_tpu/ops/attention.py:323",
+                     launches.get("flash_bwd_dkv", 0),
+                     max_err.get("flash_bwd_dkv"), ms, plain,
+                     2 * qb + 4 * kb + 2 * lb, 4 * mm_flops, lib))
+    flash_attention.launches = saved["flash_fwd"]
+    flash_bwd_dq.launches = saved["flash_bwd_dq"]
+    flash_bwd_dkv.launches = saved["flash_bwd_dkv"]
     return rows
 
 
 def _profile_window(torch, fn):
     """Run ``fn`` once under torch.profiler. Returns the window's host
     wall time, the union of device kernel intervals (busy time), the
-    kernel count and the top kernels by device time."""
+    kernel count and the top kernels by device time; and the profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -512,28 +806,29 @@ def _profile_window(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # device events, less the device-side copies of record_function
+    # ranges (the trainer's "train.*" phases), which span gaps
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith("train.")]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
-        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}, prof
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             busy += e - max(s, end)
             end = e
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            t, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (t + ev.time_range.end - ev.time_range.start,
-                                n + 1)
+    for ev in kernels:
+        t, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (t + ev.time_range.end - ev.time_range.start,
+                            n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e3 / wall_ms,
             "kernels": len(spans),
             "top": [{"name": k[:80], "ms": t / 1e3, "count": n}
-                    for k, (t, n) in top]}
+                    for k, (t, n) in top]}, prof
 
 
 def phase_profile(torch):
@@ -558,7 +853,8 @@ def phase_profile(torch):
     engine.step(skip_decode=True)          # warm the 512 bucket
     engine.abort_request(warm)
     engine.add_request(prompts[-1], sp)
-    prefill = _profile_window(torch, lambda: engine.step(skip_decode=True))
+    prefill, _ = _profile_window(torch,
+                                 lambda: engine.step(skip_decode=True))
     emit({"phase": "profile", "window": "prefill 511 tokens, B=1",
           **prefill})
     for p in prompts[:-1]:
@@ -566,9 +862,57 @@ def phase_profile(torch):
     while sum(s is not None and s.ctx_len > 0 for s in engine.slots) < 8:
         engine.step(skip_decode=True)
     engine.step()                           # warm-up burst
-    decode = _profile_window(torch, engine.step)
+    decode, _ = _profile_window(torch, engine.step)
     emit({"phase": "profile", "window": "one decode burst, K=8, B=8",
           **decode})
+
+
+GEMM_WORDS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "wgmma")
+
+
+def phase_profile_train(torch):
+    """Where one 8B training step's device time goes: the three flash
+    kernels (by kernel name), cuBLAS GEMMs (by kernel name) and the
+    optimizer (the kernels inside the step's "train.optimizer" range on
+    the device timeline), after one warm-up step."""
+    from torch.autograd import DeviceType
+
+    cfg, state, step_fn, batch = _build_8b_trainer(torch)
+    state, _ = step_fn(state, batch)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    window, prof = _profile_window(torch, one_step)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in kernels if e.name.startswith("train.")}
+    kernels = [e for e in kernels if not e.name.startswith("train.")]
+
+    def ms(events):
+        return sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+
+    split = {name: ms([e for e in kernels if name + "_kernel" in e.name])
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    split["gemm"] = ms([e for e in kernels if any(
+        w in e.name.lower() for w in GEMM_WORDS)])
+    if "train.optimizer" in ranges:
+        lo, hi = ranges["train.optimizer"]
+        split["optimizer"] = ms([e for e in kernels
+                                 if lo <= e.time_range.start
+                                 and e.time_range.end <= hi])
+    else:
+        split["optimizer"] = "not measured"
+    busy = window.get("device_busy_ms")
+    if isinstance(busy, float):
+        split["other"] = busy - sum(v for v in split.values()
+                                    if isinstance(v, float))
+    tokens = TRAIN_B * TRAIN_S
+    emit({"phase": "profile_train", "window": "one 8B training step, "
+          "B=1, S=2048, remat full", **window, "split_ms": split,
+          "tok_s_profiled": tokens / (window["wall_ms"] / 1e3),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
 def _row(name, source, replaces, launches, err, ms, plain, nbytes, flops,
@@ -588,21 +932,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    all_phases = ["build", "parity", "engine", "reference", "timing"]
+    all_phases = ["build", "parity", "engine", "train", "reference",
+                  "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
         phase_device(torch)
         if "build" in phases:
             phase_build()
         max_err = phase_parity(torch) if "parity" in phases else {}
+        torch.cuda.empty_cache()
         launches = {}
         if "engine" in phases:
             launches = phase_engine(torch)
+            torch.cuda.empty_cache()
+        if "train" in phases:
+            # flash_fwd runs on both paths: its row counts both runs
+            for name, n in phase_train(torch).items():
+                launches[name] = launches.get(name, 0) + n
             torch.cuda.empty_cache()
         if "reference" in phases:
             phase_reference(torch)
         if "profile" in phases:
             phase_profile(torch)
+            torch.cuda.empty_cache()
+        if "profile_train" in phases:
+            phase_profile_train(torch)
             torch.cuda.empty_cache()
         if "timing" in phases:
             rows = phase_timing(torch, launches, max_err)

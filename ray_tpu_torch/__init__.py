@@ -1,11 +1,12 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's device plane.
 
 It sits beside ``ray_tpu`` (the JAX reference) and imports nothing of it,
-nor of JAX. This slice serves Llama-3 on one NVIDIA H100: whole-prompt
-and chunked prefill, the fused K-step decode burst, sampling and the
-continuous-batching engine, with two hand-written CUDA kernels
-(``csrc/flash_fwd.cu``, ``csrc/paged_decode.cu``) in place of the two
-Pallas kernels on the serving path.
+nor of JAX. It serves Llama-3 on one NVIDIA H100 (whole-prompt and
+chunked prefill, the fused K-step decode burst, sampling and the
+continuous-batching engine) and trains it (``lm_loss`` under
+``train.make_train_step``), with hand-written CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/paged_decode.cu``)
+in place of the repository's four Pallas kernels.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

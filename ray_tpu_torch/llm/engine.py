@@ -189,6 +189,7 @@ class LLMEngine:
     def has_unfinished(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
+    @torch.inference_mode()
     def step(self, skip_decode: bool = False) -> List[StepOutput]:
         """One scheduling round: admit waiting requests into free slots,
         advance ONE prefill work unit (a whole prompt, or one chunk),
@@ -256,6 +257,7 @@ class LLMEngine:
                     self._prefill_skips.get(s.request_id, 0) + 1)
         return pick
 
+    @torch.inference_mode()
     def generate(self, prompts: List[List[int]],
                  params: Optional[SamplingParams] = None) -> List[List[int]]:
         """Run all prompts to completion; outputs are collected from

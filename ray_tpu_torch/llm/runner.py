@@ -15,6 +15,10 @@ default ``torch.backends.cuda.matmul.allow_tf32 = False`` on the card:
 with TF32 on, f32 products keep ~3 decimal digits and greedy streams
 drift from the reference.
 
+The entry points run under ``torch.inference_mode()``: params that come
+from a trainer with ``requires_grad`` set build no graph, and attention
+saves nothing for a backward.
+
 Padding lanes and inactive slots write to the dump page 0 explicitly:
 unlike JAX's clamping gathers and dropping scatters, an out-of-range
 index in torch raises or corrupts, so every (page, offset) pair is
@@ -95,6 +99,7 @@ def _finish_layer(x, o, lp, cfg):
     return x + _mlp(h, lp, cfg)
 
 
+@torch.inference_mode()
 def prefill(params, cache_k, cache_v, tokens, prompt_lens, block_tables,
             cos, sin, lora=None, *, cfg: LlamaConfig):
     """Process whole right-padded prompts, fill their pages, return the
@@ -136,6 +141,7 @@ def prefill_bucket(seq_len: int, max_seq: int, floor: int = 16) -> int:
     return min(b, max_seq)
 
 
+@torch.inference_mode()
 def prefill_chunk(params, cache_k, cache_v, tokens, start_pos: int,
                   chunk_len: int, block_tables, cos, sin, *,
                   cfg: LlamaConfig):
@@ -194,6 +200,7 @@ def sample_logits(logits, seed, temperature, top_k, top_p):
     return sample_from_logits(logits, seed, temperature, top_k, top_p)
 
 
+@torch.inference_mode()
 def prefill_sample(params, cache_k, cache_v, tokens, prompt_lens,
                    block_tables, cos, sin, seed, temperature, top_k,
                    top_p, lora=None, *, cfg: LlamaConfig,
@@ -228,6 +235,7 @@ def _attend_gathered(qg, ok, ov, nk, nv, old_mask, new_mask, hd):
             + torch.einsum("bgrk,bkgd->bgrd", p[..., Sold:], nv.float()))
 
 
+@torch.inference_mode()
 def decode_burst(params, cache_k, cache_v, tokens, positions,
                  block_tables, active, cos, sin, seed, temperature,
                  top_k, top_p, lora=None, *, cfg: LlamaConfig,

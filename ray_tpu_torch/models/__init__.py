@@ -1,5 +1,7 @@
-from .convert import params_from_jax
-from .llama import LLAMA_CONFIGS, LlamaConfig, forward, init_params
+from .convert import opt_state_from_jax, params_from_jax, params_to_numpy
+from .llama import (LLAMA_CONFIGS, LlamaConfig, forward, init_params,
+                    lm_loss, unstack_layers)
 
 __all__ = ["LLAMA_CONFIGS", "LlamaConfig", "forward", "init_params",
-           "params_from_jax"]
+           "lm_loss", "opt_state_from_jax", "params_from_jax",
+           "params_to_numpy", "unstack_layers"]

@@ -1,4 +1,5 @@
-"""Carry a ``ray_tpu`` parameter tree into the port.
+"""Carry a ``ray_tpu`` parameter tree (and its optax AdamW state) into
+the port, and a port tree back out as numpy.
 
 The input is the JAX tree with its leaves already turned into numpy
 arrays (``jax.tree.map(np.asarray, params)``), so this module needs
@@ -15,6 +16,9 @@ import numpy as np
 import torch
 
 from .._private.device import resolve_device
+from .._private.tree import tree_leaves
+from ..train.optim import AdamState
+from .llama import unstack_layers
 
 
 def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
@@ -36,3 +40,54 @@ def params_from_jax(tree, device=None):
         return _leaf(node, dev)
 
     return walk(tree)
+
+
+def _find_adam_state(node):
+    """optax's ``ScaleByAdamState(count, mu, nu)`` inside the chained
+    state of ``optax.adamw`` (the other states of the chain are empty)."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state, params, device=None) -> AdamState:
+    """optax ``adamw`` state with numpy leaves → the port's
+    :class:`AdamState` for ``params`` (the trainer's tree): mu and nu
+    leaf for leaf, split per layer where ``params`` is, and optax's
+    ``count``, so a run resumes with the same bias correction."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState(count, mu, nu) in the state")
+    mu = params_from_jax(adam.mu, device)
+    nu = params_from_jax(adam.nu, device)
+    if isinstance(params["layers"], (list, tuple)):
+        mu, nu = unstack_layers(mu), unstack_layers(nu)
+    for p, m, n in zip(tree_leaves(params), tree_leaves(mu),
+                       tree_leaves(nu), strict=True):
+        if not (p.shape == m.shape == n.shape and p.dtype == m.dtype):
+            raise ValueError(f"moment {tuple(m.shape)} {m.dtype} does not "
+                             f"match its param {tuple(p.shape)} {p.dtype}")
+    return AdamState(int(np.asarray(adam.count)), mu, nu)
+
+
+def params_to_numpy(params):
+    """A port tree → the same tree of numpy arrays in the reference's
+    stacked layout (per-layer lists are stacked again; bf16 leaves come
+    out as float32, exactly)."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            layers = [walk(n) for n in node]
+            return {k: np.stack([lp[k] for lp in layers])
+                    for k in layers[0]}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return walk(params)

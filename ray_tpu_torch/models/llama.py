@@ -6,16 +6,23 @@ reference's einsum layouts (wq (L, d, h, hd), wo (L, h, hd, d), ...), so
 a ``ray_tpu`` tree converts leaf for leaf (models/convert.py).
 
 ``forward`` is the single-device forward; the layers run as a Python
-loop over the stacked axis. ``lm_loss``, remat and MoE come with the
-training slice.
+loop over the stacked axis, each under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set and grad is on. ``lm_loss`` is the training loss.
+The trainer (train/step.py) hands the model one leaf per layer and name
+instead of the stacked leaves (``params["layers"]`` a list of per-layer
+dicts), so that no layer's backward touches a whole stacked leaf. MoE
+is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._private.device import resolve_device
 from ..ops import apply_rotary, attention, rms_norm, rope_frequencies
@@ -123,37 +130,94 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None):
     }
 
 
-def layer_params(layers: Dict, li: int) -> Dict:
-    """Layer ``li`` of the stacked tree; quantized leaves slice both their
-    int8 values and their scales."""
+def layer_params(layers, li: int) -> Dict:
+    """Layer ``li`` of the stacked tree (quantized leaves slice both their
+    int8 values and their scales), or of a per-layer list."""
+    if isinstance(layers, (list, tuple)):
+        return layers[li]
     return {k: ({"q": v["q"][li], "s": v["s"][li]} if isinstance(v, dict)
                 else v[li]) for k, v in layers.items()}
 
 
+def unstack_layers(params: Dict) -> Dict:
+    """The tree with ``params["layers"]`` as a list of per-layer dicts
+    whose tensors are views of the stacked leaves (sharing their storage,
+    so an in-place update of a layer's tensor updates the stacked leaf)."""
+    layers = params["layers"]
+    n = len(next(iter(layers.values())))
+    return {**params, "layers": [{k: v[li] for k, v in layers.items()}
+                                 for li in range(n)]}
+
+
+def _layer(x, lp, cfg: LlamaConfig, cos, sin):
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wq"]), cos, sin)
+    k = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wk"]), cos, sin)
+    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"])
+    o = attention(q, k, v, causal=True)
+    x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    g = torch.einsum("bsd,dm->bsm", h, lp["w_gate"])
+    u = torch.einsum("bsd,dm->bsm", h, lp["w_up"])
+    return x + torch.einsum("bsm,md->bsd", torch.nn.functional.silu(g) * u,
+                            lp["w_down"])
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save
+    the products without batch dims (the projections, which einsum lowers
+    to bmm with a batch of 1, or mm), recompute everything else."""
+    aten = torch.ops.aten
+    if (op in (aten.mm.default, aten.addmm.default)
+            or (op is aten.bmm.default and args[0].shape[0] == 1)):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_body(cfg: LlamaConfig):
+    """The layer as the forward runs it: under per-layer remat when
+    ``cfg.remat`` is set and grad is on (``remat_policy`` "dots" saves the
+    projections, anything else recomputes the whole layer), else bare."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _layer
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, _layer, **kw)
+
+
 def forward(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S, vocab) in f32. Attention is the
-    flash kernel on the card and its plain version on the CPU."""
+    flash kernels on the card and their plain versions on the CPU."""
     _check_dense(cfg)
     S = tokens.shape[1]
     dev = tokens.device
     cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
                                 device=dev)
     x = params["embed"][tokens.long()]
+    body = _layer_body(cfg)
     for li in range(cfg.n_layers):
-        lp = layer_params(params["layers"], li)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wq"]), cos,
-                         sin)
-        k = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wk"]), cos,
-                         sin)
-        v = torch.einsum("bsd,dhk->bshk", h, lp["wv"])
-        o = attention(q, k, v, causal=True)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        g = torch.einsum("bsd,dm->bsm", h, lp["w_gate"])
-        u = torch.einsum("bsd,dm->bsm", h, lp["w_up"])
-        x = x + torch.einsum("bsm,md->bsd", torch.nn.functional.silu(g) * u,
-                             lp["w_down"])
+        x = body(x, layer_params(params["layers"], li), cfg, cos, sin)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # operands in the model dtype, f32 accumulation and result
     return logits_matmul(x.to(cfg.dtype), params["lm_head"].to(cfg.dtype))
+
+
+def lm_loss(params, batch, cfg: LlamaConfig, *, z_loss: float = 1e-4):
+    """Next-token cross-entropy in f32 with the z-loss regularizer.
+
+    batch: {"tokens": (B, S) int, "mask": optional (B, S) 0/1 valid}.
+    Targets are the tokens shifted left; the final position is dropped.
+    loss = sum(nll * mask) / max(sum(mask), 1)."""
+    tokens = batch["tokens"]
+    logits = forward(params, tokens, cfg)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - logits.gather(-1, targets[..., None])[..., 0]
+    if z_loss:
+        nll = nll + z_loss * logz.square()
+    mask = batch.get("mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else mask[:, 1:].to(nll.dtype))
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

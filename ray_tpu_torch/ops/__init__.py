@@ -1,15 +1,23 @@
-"""Tensor ops of the port: plain PyTorch, plus the two hand-written CUDA
-kernels behind ``flash_attention`` and ``paged_decode_attention``."""
+"""Tensor ops of the port: plain PyTorch, plus the hand-written CUDA
+kernels behind ``flash_attention`` (forward), ``flash_bwd_dq`` and
+``flash_bwd_dkv`` (backward) and ``paged_decode_attention``."""
 
-from .attention import (attention, blockwise_attention, flash_attention,
-                        flash_attention_reference, naive_attention)
+from .attention import (FlashAttention, attention, blockwise_attention,
+                        flash_attention, flash_attention_bwd,
+                        flash_attention_bwd_reference,
+                        flash_attention_reference, flash_bwd_dkv,
+                        flash_bwd_dkv_reference, flash_bwd_dq,
+                        flash_bwd_dq_reference, naive_attention)
 from .norms import rms_norm
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_reference)
 from .rotary import apply_rotary, rope_frequencies
 
 __all__ = [
-    "apply_rotary", "attention", "blockwise_attention", "flash_attention",
-    "flash_attention_reference", "naive_attention", "paged_decode_attention",
-    "paged_decode_attention_reference", "rms_norm", "rope_frequencies",
+    "FlashAttention", "apply_rotary", "attention", "blockwise_attention",
+    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_reference",
+    "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dkv_reference",
+    "flash_bwd_dq", "flash_bwd_dq_reference", "naive_attention",
+    "paged_decode_attention", "paged_decode_attention_reference", "rms_norm",
+    "rope_frequencies",
 ]

@@ -27,7 +27,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+# library -> source; each library's C entry points are in ENTRIES
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "paged_decode": "paged_decode.cu"}
+ENTRIES = {"flash_fwd": ("flash_fwd",),
+           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+           "paged_decode": ("paged_decode",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,6 +44,13 @@ _ARGTYPES = {
     # dtype, stream
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                   _I, _P],
+    # q, k, v, dout, lse, dvec, dq, B, Sq, Skv, Hq, Hkv, D, strides[12],
+    # scale, causal, dtype, stream
+    "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                     _F, _I, _I, _P],
+    # as flash_bwd_dq with dk, dv in place of dq
+    "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P, _F, _I, _I, _P],
     # q, ck, cv, nk, nv, bt, ctx_len, new_len, out, B, kvh, rep, hd, P,
     # page_size, n_pages, K, scale, dtype, stream
     "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -102,16 +114,18 @@ def build_all() -> Dict[str, Path]:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library ``name`` (a key of SOURCES), built on first use,
+    with the argument types of its entry points set."""
     with _lock:
         if name not in _libs:
             path = _lib_path(name)
             if not path.exists():
                 build_all()
             dll = ctypes.CDLL(str(path))
-            fn = getattr(dll, name)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            for entry in ENTRIES[name]:
+                fn = getattr(dll, entry)
+                fn.argtypes = _ARGTYPES[entry]
+                fn.restype = ctypes.c_int
             _libs[name] = dll
         return _libs[name]
 

@@ -1,14 +1,15 @@
-"""Attention: naive and blockwise plain versions, and the flash-attention
-forward, which on a CUDA tensor launches the hand-written kernel
-(``csrc/flash_fwd.cu``) and on a CPU tensor runs its plain version.
+"""Attention: naive and blockwise plain versions, and flash attention,
+whose forward (``csrc/flash_fwd.cu``) and two backward kernels
+(``csrc/flash_bwd.cu``, dQ and dK/dV) launch on CUDA tensors, while CPU
+tensors run their plain versions.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Layouts: q [B, Sq, Hq, D];
 k/v [B, Skv, Hkv, D]; GQA maps q head h to kv head h // (Hq // Hkv).
 Causal alignment is bottom-right (query i sees key j <= i + Skv - Sq),
-and a fully masked row gives 0, not a uniform average.
+and a fully masked row gives 0, not a uniform average, in the forward
+and 0 gradients in the backward.
 
-``attention`` is forward-only in this slice; the backward kernels and
-the ``autograd.Function`` around them come with training.
+``attention`` is differentiable through :class:`FlashAttention`.
 """
 
 from __future__ import annotations
@@ -176,9 +177,203 @@ def flash_attention(q, k, v, *, causal: bool = True,
 flash_attention.launches = 0
 
 
+# --- backward ---------------------------------------------------------------
+
+
+def _bwd_probs(q, k, v, do, lse, dvec, causal, scale):
+    """P and dS [B, Hq, Sq, Skv] in f32 as the backward kernels rebuild
+    them from the LSE, with masked entries selected to exactly 0 (the
+    Pallas kernels compute exp(-1e30 - lse) there, which is 1 on a row
+    that sees no key); and k, v repeated to Hq heads in f32."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kf = _repeat_kv(k, hq // hkv).float()
+    vf = _repeat_kv(v, hq // hkv).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(_causal_mask(sq, skv, q.device), p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    return p, p * (dp - dvec[..., None]), kf
+
+
+def _fold_groups(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[B, S, Hq, D] per q head -> [B, S, Hkv, D], each GQA group summed."""
+    b, s, hq, d = x.shape
+    return x.reshape(b, s, hkv, hq // hkv, d).sum(dim=3)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, dvec, *, causal: bool = True,
+                           scale: Optional[float] = None):
+    """Plain version of the dQ kernel: dQ = scale * dS K, dS rounded to k's
+    dtype before the product, f32 accumulation, dQ in q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _, ds, kf = _bwd_probs(q, k, v, do, lse, dvec, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, dvec, *, causal: bool = True,
+                            scale: Optional[float] = None):
+    """Plain version of the dK/dV kernel: dV = P^T dO with P rounded to
+    dO's dtype, dK = scale * dS^T Q with dS rounded to q's dtype; each GQA
+    group summed in f32, then rounded once to k's and v's dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    hkv = k.shape[2]
+    p, ds, _ = _bwd_probs(q, k, v, do, lse, dvec, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    return (_fold_groups(dk, hkv).to(k.dtype),
+            _fold_groups(dv, hkv).to(v.dtype))
+
+
+def _dvec(o, do):
+    """D = rowsum(dO * O) in f32, [B, Hq, Sq] (computed outside the
+    kernels, as the reference does)."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
+                                  causal: bool = True,
+                                  scale: Optional[float] = None):
+    """Plain version of the flash backward: (dQ, dK, dV) from the saved O
+    and LSE."""
+    dvec = _dvec(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, dvec, causal=causal,
+                                scale=scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, dvec, causal=causal,
+                                     scale=scale)
+    return dq, dk, dv
+
+
+def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
+    """Checks what the backward kernels take and returns the shared tail
+    of their C arguments, or raises."""
+    _check_flash_inputs(q, k, v)
+    b, sq, hq, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("flash backward: dO must match q in shape, dtype "
+                         "and device")
+    if q.dtype not in _FLASH_DTYPES or d not in (64, 128):
+        raise ValueError(f"flash backward kernels take f32/bf16 with "
+                         f"head_dim 64 or 128, got {q.dtype}, {d}")
+    if any(t.stride(3) != 1 for t in (q, k, v, do)):
+        raise ValueError("flash backward kernels need head_dim stride 1")
+    for name, t in (("lse", lse), ("dvec", dvec)):
+        if (t.shape != (b, hq, sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"flash backward: {name} must be contiguous "
+                             f"f32 [B, Hq, Sq]")
+    if b * hq > 65535:
+        raise ValueError(f"flash backward kernels take B * Hq <= 65535, "
+                         f"got {b * hq}")
+    strides = (ctypes.c_longlong * 12)(*[
+        t.stride(i) for t in (q, k, v, do) for i in range(3)])
+    return (b, sq, k.shape[1], hq, k.shape[2], d,
+            ctypes.cast(strides, ctypes.c_void_p), float(scale)), strides
+
+
+def flash_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
+                 scale: Optional[float] = None):
+    """dQ of flash attention. On a CUDA tensor it launches the dQ kernel
+    (``csrc/flash_bwd.cu``) or raises for what it does not take; on a CPU
+    tensor it runs :func:`flash_bwd_dq_reference`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, dvec, causal=causal,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq: no kernel for {q.device}")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    args, _keep = _bwd_launch_args(q, k, v, do, lse, dvec, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    err = _kernels.lib("flash_bwd").flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), *args, int(causal),
+        _FLASH_DTYPES[q.dtype], _kernels.stream_ptr(q.device))
+    _kernels.check("flash_bwd_dq", err)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,
+                  scale: Optional[float] = None):
+    """(dK, dV) of flash attention, each GQA group summed. On a CUDA tensor
+    it launches the dK/dV kernel (``csrc/flash_bwd.cu``) or raises for what
+    it does not take; on a CPU tensor it runs
+    :func:`flash_bwd_dkv_reference`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, dvec, causal=causal,
+                                       scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv: no kernel for {q.device}")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    args, _keep = _bwd_launch_args(q, k, v, do, lse, dvec, scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    err = _kernels.lib("flash_bwd").flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args,
+        int(causal), _FLASH_DTYPES[q.dtype], _kernels.stream_ptr(q.device))
+    _kernels.check("flash_bwd_dkv", err)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Flash-attention backward: (dQ, dK, dV) from the saved O and LSE.
+    On CUDA tensors it launches the dQ and the dK/dV kernels (raising for
+    what they do not take, never falling back); on CPU tensors it runs
+    their plain versions."""
+    dvec = _dvec(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, dvec, causal=causal, scale=scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, dvec, causal=causal,
+                           scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, which saves
+    q, k, v, O and the LSE, and the two backward kernels (the counterpart
+    of the reference's ``custom_vjp`` around ``flash_attention_tpu``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def attention(q, k, v, *, causal: bool = True,
               scale: Optional[float] = None):
-    """Forward attention for the model and the prefill: the flash kernel
-    on CUDA (any sequence length; raises for a shape it does not take,
-    never falls back), its plain version on the CPU."""
+    """Attention for the model, the trainer and the prefill: the flash
+    kernels on CUDA (any sequence length; raises for a shape they do not
+    take, never falls back), their plain versions on the CPU.
+    Differentiable through :class:`FlashAttention` when grad is on and an
+    input requires it; otherwise (serving) it saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention(q, k, v, causal=causal, scale=scale)

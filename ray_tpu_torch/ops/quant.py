@@ -61,18 +61,37 @@ def weight_einsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
     return (out.float() * w["s"]).to(out.dtype)
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """``x2 @ w`` in the operands' dtype with an f32 result (cuBLAS, f32
+    accumulation). Its backward gives dX and dW in the operands' dtype,
+    also accumulated in f32, from the gradient rounded to that dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def logits_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x [..., d] @ w [d, V]`` (raw, or quantized with scales [V]) with
     operands in x's dtype, f32 accumulation and an f32 result: the
     reference's ``preferred_element_type=float32`` for the lm_head. On
     the card a bf16 product goes to cuBLAS with an f32 output (no f32
-    copy of the weight); elsewhere the operands are upcast exactly and
-    multiplied in f32."""
+    copy of the weight), differentiable through :class:`_MatmulF32Out`;
+    elsewhere the operands are upcast exactly and multiplied in f32."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     wm = w["q"].to(x.dtype) if is_quantized(w) else w.to(x.dtype)
     if x2.is_cuda and x2.dtype != torch.float32:
-        out = torch.mm(x2, wm, out_dtype=torch.float32)
+        out = _MatmulF32Out.apply(x2, wm)
     else:
         out = x2.float() @ wm.float()
     if is_quantized(w):

@@ -11,13 +11,22 @@ the repository root and without the JAX-importing conftest:
 import pytest
 import torch
 
+from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
-from ray_tpu_torch.models.llama import LlamaConfig, init_params
-from ray_tpu_torch.ops import (flash_attention, flash_attention_reference,
+from ray_tpu_torch.models import params_to_numpy
+from ray_tpu_torch.models.llama import LlamaConfig, init_params, lm_loss
+from ray_tpu_torch.ops import (attention, flash_attention,
+                               flash_attention_reference, flash_bwd_dkv,
+                               flash_bwd_dkv_reference, flash_bwd_dq,
+                               flash_bwd_dq_reference, naive_attention,
                                paged_decode_attention,
                                paged_decode_attention_reference)
+from ray_tpu_torch.train import adamw, make_train_step
 
 pytestmark = pytest.mark.cuda
+
+# six xdist workers share the machine's cores
+torch.set_num_threads(2)
 
 
 @pytest.fixture
@@ -160,3 +169,117 @@ def test_engine_on_card_matches_cpu(gen):
         assert got == want
         assert paged_decode_attention.launches > p0
         assert (flash_attention.launches > f0) == (chunk == 0)
+
+
+def _bwd_args(gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
+    q = _randn(gen, (B, Sq, Hq, D), dtype)
+    k = _randn(gen, (B, Skv, Hkv, D), dtype)
+    v = _randn(gen, (B, Skv, Hkv, D), dtype)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = _randn(gen, o.shape, dtype)
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, dvec
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,dtype", [
+    (2, 100, 100, 8, 2, 128, True, torch.float32),     # ragged tiles
+    (2, 96, 64, 4, 2, 64, True, torch.float32),        # rows with no key
+    (1, 70, 200, 4, 1, 64, False, torch.float32),
+    (1, 512, 512, 32, 8, 128, True, torch.bfloat16),   # 8B heads
+    (2, 96, 64, 4, 2, 128, True, torch.bfloat16),      # rows with no key
+    (1, 128, 384, 8, 2, 64, True, torch.bfloat16),     # Sq < Skv, D=64
+])
+def test_backward_kernels_match_plain_versions_on_card(
+        gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
+    """f32 at 1e-4; bf16 within the reference's relative 2e-2 (max error
+    over the largest magnitude). Rows that see no key give dQ = 0."""
+    args = _bwd_args(gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype)
+    got = (flash_bwd_dq(*args, causal=causal),
+           *flash_bwd_dkv(*args, causal=causal))
+    want = (flash_bwd_dq_reference(*args, causal=causal),
+            *flash_bwd_dkv_reference(*args, causal=causal))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err < 2e-2, err
+    if causal and Sq > Skv:
+        assert got[0][:, :Sq - Skv].abs().max() == 0
+
+
+def test_attention_grads_on_card_match_autograd_through_naive(gen):
+    """attention() on CUDA tensors: the backward launches both kernels
+    and matches autograd through naive_attention in f32."""
+    q, k, v = (_randn(gen, s).requires_grad_() for s in
+               ((2, 77, 4, 64), (2, 77, 2, 64), (2, 77, 2, 64)))
+    do = _randn(gen, (2, 77, 4, 64))
+    n0 = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = torch.autograd.grad(attention(q, k, v), (q, k, v), do)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want = torch.autograd.grad(naive_attention(q, k, v), (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _train_cfg(**kw):
+    return LlamaConfig(**{**dict(vocab=512, dim=256, n_layers=2, n_heads=2,
+                                 n_kv_heads=1, mlp_dim=512, max_seq=256,
+                                 dtype=torch.float32, remat=False), **kw})
+
+
+def _train_batch():
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, 512, (2, 90), generator=g, dtype=torch.int32)
+    mask = torch.ones_like(tokens)
+    mask[0, 50:] = 0
+    return {"tokens": tokens, "mask": mask}
+
+
+def test_train_step_on_card_matches_cpu(gen):
+    """One f32 step of a 2-layer model (remat "full") through the kernels
+    on the card and through their plain versions on the CPU, from the
+    same weights: loss and grad norm at 1e-4, params at 1e-4. Adam's eps
+    is 1e-4 so that no element's step hangs on the sign of a gradient
+    that is cancellation noise."""
+    cfg = _train_cfg(remat=True)
+    params = init_params(cfg, seed=1, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init_fn, step_fn, place_batch = make_train_step(
+            lambda p, b: lm_loss(p, b, cfg), adamw(1e-3, eps=1e-4),
+            device=dev)
+        state = init_fn(tree_map(lambda t: t.to(dev, copy=True), params))
+        state, m = step_fn(state, place_batch(_train_batch()))
+        out[dev] = (m["loss"].item(), m["grad_norm"].item(),
+                    params_to_numpy(state.params))
+    (l0, n0, p0), (l1, n1, p1) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    assert abs(n1 - n0) <= 1e-4 * abs(n0)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+        torch.testing.assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launch_counts_on_card(gen, remat):
+    """Per step of L layers: flash_fwd 2L with remat (forward, then its
+    recompute), L without; flash_bwd_dq and flash_bwd_dkv L each."""
+    cfg = _train_cfg(remat=remat)
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: lm_loss(p, b, cfg), adamw(1e-3), device="cuda")
+    state = init_fn(init_params(cfg, seed=1, device="cuda"))
+    batch = place_batch(_train_batch())
+    before = (flash_attention.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (flash_attention.launches - before[0],
+            flash_bwd_dq.launches - before[1],
+            flash_bwd_dkv.launches - before[2]) == (
+        L * (2 if remat else 1), L, L)
+    assert torch.isfinite(m["loss"]) and int(m["step"]) == 1

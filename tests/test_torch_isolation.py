@@ -18,6 +18,9 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, init_kv_cache
 from ray_tpu_torch.models import LLAMA_CONFIGS, init_params, params_from_jax
 
+# six xdist workers share the machine's cores
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "ray_tpu_torch"
 TINY = LLAMA_CONFIGS["tiny"]

@@ -5,6 +5,8 @@ Weights are made by the JAX init and carried over leaf for leaf with
 the flash kernel's plain version there).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -15,11 +17,18 @@ import torch
 from ray_tpu.models import LLAMA_CONFIGS as J_CONFIGS
 from ray_tpu.models import forward as j_forward
 from ray_tpu.models import init_params as j_init
+from ray_tpu.models import lm_loss as j_lm_loss
 from ray_tpu.ops import quant as jq
 
 from ray_tpu_torch.models import (LLAMA_CONFIGS, forward, init_params,
-                                  params_from_jax)
+                                  lm_loss, params_from_jax, unstack_layers)
 from ray_tpu_torch.ops.quant import init_params_quantized, quantize_params
+
+# the module, which the package's ``attention`` function shadows
+tattn = importlib.import_module("ray_tpu_torch.ops.attention")
+
+# six xdist workers share the machine's cores
+torch.set_num_threads(2)
 
 TINY = LLAMA_CONFIGS["tiny"]
 
@@ -28,6 +37,9 @@ def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, list):
+        for i, node in enumerate(tree):
+            yield from _leaves(node, prefix + (i,))
     else:
         yield prefix, tree
 
@@ -149,3 +161,101 @@ def test_8b_quantized_meta_init_has_jax_shapes():
     small = init_params_quantized(TINY, seed=1, device="cpu")
     assert small["layers"]["wq"]["q"].dtype == torch.int8
     assert int(small["layers"]["wq"]["q"].abs().max()) > 0
+
+
+def _lm_batch(seed, with_mask, seq=24):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, TINY.vocab, (2, seq)).astype(np.int32)}
+    if with_mask:
+        mask = np.ones((2, seq), np.int32)
+        mask[0, seq // 2:] = 0
+        mask[1, :3] = 0
+        batch["mask"] = mask
+    return batch
+
+
+def _grads(params, batch, cfg):
+    leaves = {k: v.requires_grad_() for k, v in _leaves(params)}
+    loss = lm_loss(params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                   cfg)
+    return loss, dict(zip(leaves, torch.autograd.grad(loss,
+                                                      list(leaves.values()))))
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_lm_loss_and_grads_match_jax(jax_tiny, with_mask):
+    """f32 next-token cross-entropy with z-loss (1e-4) and the shifted
+    mask: the value and every gradient against jax.value_and_grad of
+    ray_tpu's lm_loss at 1e-5."""
+    batch = _lm_batch(20 + with_mask, with_mask)
+    jp = jax.tree.map(jnp.asarray, jax_tiny)
+    want_loss, want_g = jax.value_and_grad(j_lm_loss)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()},
+        J_CONFIGS["tiny"])
+    loss, grads = _grads(params_from_jax(jax_tiny, device="cpu"), batch,
+                         TINY)
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    for path, w in _leaves(jax.tree.map(np.asarray, want_g)):
+        np.testing.assert_allclose(grads[path].numpy(), w, atol=1e-5,
+                                   rtol=1e-5, err_msg=str(path))
+
+
+def test_lm_loss_all_masked_is_zero_and_moe_refused():
+    params = init_params(TINY, seed=1, device="cpu")
+    batch = _lm_batch(22, True)
+    batch["mask"][:] = 0
+    loss = lm_loss(params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                   TINY)
+    assert float(loss) == 0.0
+    moe = TINY.__class__(**{**TINY.__dict__, "n_experts": 4})
+    with pytest.raises(NotImplementedError):
+        lm_loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                moe)
+
+
+def _count_attention_calls(monkeypatch):
+    """Count calls of the flash forward and of the two backward wrappers
+    (on the CPU they run their plain versions, so launches stay 0)."""
+    counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for name, attr in (("flash_fwd", "flash_attention"),
+                       ("flash_bwd_dq", "flash_bwd_dq"),
+                       ("flash_bwd_dkv", "flash_bwd_dkv")):
+        real = getattr(tattn, attr)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            counts[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tattn, attr, counted)
+    return counts
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_policies_give_the_same_grads(monkeypatch, policy):
+    """Per-layer remat ("full": recompute the layer; "dots": keep the
+    projections, recompute the rest) gives the grads of no remat, on the
+    trainer's per-layer leaves; the recompute runs the flash forward a
+    second time in every layer, the backward once."""
+    batch = _lm_batch(23, True)
+    base = init_params(TINY, seed=2, device="cpu")
+    remat_cfg = TINY.__class__(**{**TINY.__dict__, "remat": True,
+                                  "remat_policy": policy})
+    counts = _count_attention_calls(monkeypatch)
+    results = {}
+    for cfg in (TINY, remat_cfg):
+        for c in counts:
+            counts[c] = 0
+        params = unstack_layers(base)
+        params["layers"] = [{k: v.detach().clone() for k, v in lp.items()}
+                            for lp in params["layers"]]
+        results[cfg.remat] = _grads(params, batch, cfg)
+        L = cfg.n_layers
+        assert counts == {"flash_fwd": L * (2 if cfg.remat else 1),
+                          "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    (loss0, g0), (loss1, g1) = results[False], results[True]
+    assert loss0.item() == loss1.item()
+    assert g0.keys() == g1.keys()
+    for path in g0:
+        np.testing.assert_allclose(g1[path].numpy(), g0[path].numpy(),
+                                   atol=1e-6, rtol=1e-6, err_msg=str(path))

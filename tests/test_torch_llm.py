@@ -32,6 +32,9 @@ from ray_tpu_torch.llm import (EngineConfig, LLMEngine, PageAllocator,
 from ray_tpu_torch.models import LLAMA_CONFIGS, params_from_jax
 from ray_tpu_torch.ops import rope_frequencies
 
+# six xdist workers share the machine's cores
+torch.set_num_threads(2)
+
 CFG = LLAMA_CONFIGS["tiny"]
 JCFG = J_CONFIGS["tiny"]
 GREEDY = dict(temperature=0.0)
@@ -414,3 +417,26 @@ def test_engine_int8_weights_identical_to_jax(weights):
     got = _drive(LLMEngine(tq, CFG, EngineConfig(**ecfg), device="cpu"),
                  arrivals, SamplingParams(max_tokens=7, **GREEDY))
     assert got == want
+
+
+def test_serving_params_that_require_grad_builds_no_graph(weights):
+    """Params as a trainer leaves them (requires_grad set): the serving
+    entry points run under inference_mode, so prefill and decode build no
+    graph, and the engine's greedy streams are those of plain params."""
+    tp = weights[1]
+    graded = jax.tree.map(lambda t: t.detach().clone().requires_grad_(), tp)
+    prompts = [[5, 17, 99, 3], [8, 8, 2, 41, 7]]
+    ecfg = EngineConfig(max_num_seqs=2, page_size=4, num_pages=32,
+                        max_seq_len=64)
+    sp = SamplingParams(max_tokens=6, **GREEDY)
+    want = LLMEngine(tp, CFG, ecfg, device="cpu").generate(prompts, sp)
+    assert LLMEngine(graded, CFG, ecfg, device="cpu").generate(
+        prompts, sp) == want
+    ck, cv = _caches(1)
+    (cos, sin), _ = _tables()
+    logits, _, _ = runner.prefill(
+        graded, torch.from_numpy(ck), torch.from_numpy(cv),
+        torch.tensor([[5, 17, 99, 3]], dtype=torch.int32),
+        torch.tensor([4], dtype=torch.int32),
+        torch.tensor([[1, 2]], dtype=torch.int32), cos, sin, cfg=CFG)
+    assert logits.grad_fn is None and not logits.requires_grad

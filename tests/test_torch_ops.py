@@ -18,17 +18,24 @@ from ray_tpu.ops import rms_norm as j_rms
 from ray_tpu.ops import rope_frequencies as j_rope
 from ray_tpu.ops import quant as jq
 from ray_tpu.ops.attention import blockwise_attention as j_blockwise
-from ray_tpu.ops.attention import flash_attention_tpu
+from ray_tpu.ops.attention import flash_attention_tpu, flash_attention_tpu_bwd
 from ray_tpu.ops.paged_attention import (
     paged_decode_attention as j_paged,
     paged_decode_attention_reference as j_paged_ref)
 
-from ray_tpu_torch.ops import (apply_rotary, blockwise_attention,
-                               flash_attention, flash_attention_reference,
-                               naive_attention, paged_decode_attention,
+from ray_tpu_torch.ops import (FlashAttention, apply_rotary, attention,
+                               blockwise_attention, flash_attention,
+                               flash_attention_bwd,
+                               flash_attention_bwd_reference,
+                               flash_attention_reference, flash_bwd_dkv,
+                               flash_bwd_dq, naive_attention,
+                               paged_decode_attention,
                                paged_decode_attention_reference, rms_norm,
                                rope_frequencies)
 from ray_tpu_torch.ops import quant as tq
+
+# six xdist workers share the machine's cores
+torch.set_num_threads(2)
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 
@@ -276,3 +283,115 @@ def test_paged_plain_ignores_dump_page_poison(poison):
                                      torch.from_numpy(new_len)))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5)
+
+
+def _rel_err(got, want):
+    """The reference test's measure (tests/test_ops.py): max abs error
+    over the largest magnitude."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / (np.abs(want).max() + 1e-6)
+
+
+def _pallas_bwd(q, k, v, do_seed, causal, dtype=jnp.float32):
+    """The Pallas forward and backward (interpret mode) on numpy inputs:
+    returns the inputs, O, LSE and dO as numpy, and (dQ, dK, dV)."""
+    jq, jk, jv = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    out, lse = flash_attention_tpu(jq, jk, jv, causal=causal, block_q=128,
+                                   block_k=128, interpret=True,
+                                   return_lse=True)
+    do = np.random.default_rng(do_seed).standard_normal(
+        out.shape).astype(np.float32)
+    jdo = jnp.asarray(do, dtype)
+    grads = flash_attention_tpu_bwd(jq, jk, jv, out, lse, jdo, causal=causal,
+                                    block_q=128, block_k=128, interpret=True)
+    ins = [np.asarray(a, np.float32) for a in (jq, jk, jv, out, lse, jdo)]
+    return ins, [np.asarray(g, np.float32) for g in grads]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hkv", [4, 2])
+def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
+    """The cases of test_ops.py's interpret-mode backward test, f32: the
+    plain dQ, dK, dV from the same O and LSE at 1e-5."""
+    q, k, v = _qkv(10, 2, 256, 256, 4, hkv, 128)
+    ins, want = _pallas_bwd(q, k, v, 11, causal)
+    got = flash_attention_bwd(*[_t(a) for a in ins], causal=causal)
+    for g, w, t in zip(got, want, ins[:3]):
+        assert g.dtype == torch.float32 and g.shape == t.shape
+        np.testing.assert_allclose(_np(g), w, **F32)
+
+
+@pytest.mark.parametrize("sq,skv", [(256, 256), (128, 256)])
+def test_flash_bwd_plain_matches_pallas_interpret_bf16(sq, skv):
+    """bf16 at the reference's relative 2e-2, Sq < Skv included: P and
+    dS are rounded to bf16 before their products on both sides."""
+    q, k, v = _qkv(12, 1, sq, skv, 4, 2, 128)
+    ins, want = _pallas_bwd(q, k, v, 13, True, jnp.bfloat16)
+    t = [_t(a) for a in ins]
+    t = [x.bfloat16() for x in t[:4]] + [t[4], t[5].bfloat16()]
+    got = flash_attention_bwd(*t, causal=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _rel_err(_np(g), w) < 2e-2
+
+
+def _leaf_qkv(seed, b, sq, skv, hq, hkv, d):
+    return [_t(a).requires_grad_() for a in _qkv(seed, b, sq, skv, hq, hkv,
+                                                    d)]
+
+
+@pytest.mark.parametrize("sq,skv,causal", [
+    (100, 100, True),        # ragged: no 128-multiple
+    (37, 90, True),          # Sq < Skv
+    (96, 64, True),          # Sq > Skv: the first rows see no key
+    (50, 70, False),
+])
+def test_attention_grads_match_autograd_through_naive(sq, skv, causal):
+    """attention() is differentiable through FlashAttention: its
+    gradients equal autograd's through naive_attention at 1e-5, on shapes
+    the Pallas kernels cannot take; rows that see no key give dQ = 0."""
+    q, k, v = _leaf_qkv(14, 2, sq, skv, 4, 2, 64)
+    do = _t(np.random.default_rng(15).standard_normal((2, sq, 4, 64)))
+    out = attention(q, k, v, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(naive_attention(q, k, v, causal=causal),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **F32)
+    if sq > skv:
+        assert np.abs(_np(got[0])[:, :sq - skv]).max() == 0.0
+    direct = torch.autograd.grad(FlashAttention.apply(q, k, v, causal, None),
+                                 (q, k, v), do)
+    for g, d in zip(got, direct):
+        assert torch.equal(g, d)
+
+
+def test_attention_without_grad_builds_no_graph():
+    """Serving: under inference_mode (or with no input requiring grad) the
+    flash forward runs alone and saves nothing."""
+    q, k, v = _leaf_qkv(16, 1, 20, 20, 2, 1, 64)
+    with torch.inference_mode():
+        out = attention(q, k, v)
+    assert out.grad_fn is None and not out.requires_grad
+    out = attention(q.detach(), k.detach(), v.detach())
+    assert out.grad_fn is None
+    np.testing.assert_array_equal(_np(out), _np(flash_attention(q, k, v)))
+
+
+def test_bwd_wrappers_split_the_plain_backward_and_refuse_meta():
+    q, k, v = [_t(a) for a in _qkv(17, 1, 40, 40, 4, 2, 64)]
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    do = torch.ones_like(out)
+    dvec = (do * out).sum(-1).transpose(1, 2).contiguous()
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do)
+    got = (flash_bwd_dq(q, k, v, do, lse, dvec),
+           *flash_bwd_dkv(q, k, v, do, lse, dvec))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    m = [torch.empty(x.shape, device="meta") for x in (q, k, v, do)]
+    ml, md = (torch.empty(lse.shape, device="meta") for _ in range(2))
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(*m, ml, md)
+    assert flash_bwd_dq.launches == 0 and flash_bwd_dkv.launches == 0
