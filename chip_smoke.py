@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -78,16 +79,48 @@ def phase_device(torch):
 
 # --- phase 2 ---------------------------------------------------------------
 
+def _ptxas(log):
+    """Registers and spill bytes per kernel from nvcc's -Xptxas=-v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        words = line.replace(",", " ").split()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            # the kernel's name and template arguments out of the mangling
+            m = re.search(r"\d+((?:flash|paged)_[a-z_]+?_kernel)"
+                          r"(?:I(f|13__nv_bfloat16)Li(\d+)E)?", name)
+            if m:
+                name = m.group(1) + (
+                    f"<{'f32' if m.group(2) == 'f' else 'bf16'},"
+                    f"{m.group(3)}>" if m.group(2) else "")
+            out[name] = {}
+        elif name and "spill" in words:
+            # "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+            out[name]["spill_bytes"] = (int(words[words.index("spill") - 2])
+                                        + int(words[-4]))
+        elif name and "Used" in words and "registers" in words:
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+    return out
+
+
 def phase_build():
+    """Build every kernel; the tensor-core dK/dV kernel must not spill."""
     from ray_tpu_torch.ops import _kernels
 
     paths = _kernels.build_all()
     for name in paths:
         _kernels.lib(name)
+    kernels = {}
     for name, log in _kernels.build_log.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr, flush=True)
+        kernels.update(_ptxas(log))
     emit({"phase": "build", "seconds": round(_kernels.build_seconds, 3),
-          "libraries": sorted(p.name for p in paths.values())})
+          "libraries": sorted(p.name for p in paths.values()),
+          "ptxas": kernels})
+    tc = [v for k, v in kernels.items() if "flash_bwd_dkv_tc" in k]
+    if _kernels.build_log:    # a library already built has no log here
+        require(len(tc) == 1 and tc[0].get("spill_bytes") == 0,
+                f"flash_bwd_dkv_tc spills or is missing: {tc}")
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -111,6 +144,8 @@ BWD_CASES = [
     ("ragged_100", 2, 100, 100, 4, 2, 128, True, "bf16"),
     ("sq_gt_skv", 2, 96, 64, 4, 2, 128, True, "bf16"),
     ("non_causal", 2, 256, 256, 8, 8, 128, False, "bf16"),
+    ("odd_tiles", 1, 320, 320, 8, 2, 128, True, "bf16"),
+    ("mha", 2, 192, 192, 4, 4, 128, True, "bf16"),
     ("d64", 1, 200, 200, 8, 4, 64, True, "bf16"),
     ("f32", 2, 130, 100, 4, 1, 128, True, "f32"),
 ]
@@ -266,7 +301,7 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
     bf16 within the reference's relative 2e-2 (max error over the largest
     magnitude), f32 within 1e-4 abs/rel; rows that see no key (causal,
     Sq > Skv) must give exactly 0, and nothing may be NaN."""
-    from ray_tpu_torch.ops.attention import (flash_bwd_dkv,
+    from ray_tpu_torch.ops.attention import (dkv_route, flash_bwd_dkv,
                                              flash_bwd_dkv_reference,
                                              flash_bwd_dq,
                                              flash_bwd_dq_reference)
@@ -276,7 +311,12 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
                              (flash_bwd_dq_reference(*args, causal=causal),)),
             "flash_bwd_dkv": (flash_bwd_dkv(*args, causal=causal),
                               flash_bwd_dkv_reference(*args, causal=causal))}
+    again = flash_bwd_dkv(*args, causal=causal)
     torch.cuda.synchronize()
+    # no atomics: a second launch gives the same bits
+    deterministic = all(torch.equal(a, b) for a, b in zip(
+        again, outs["flash_bwd_dkv"][0]))
+    require(deterministic, f"flash_bwd_dkv is not deterministic: {name}")
     errs = {}
     for kernel, (got, want) in outs.items():
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
@@ -296,7 +336,10 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
         emit({"phase": "parity", "kernel": kernel, "case": name,
               "shape": [B, Sq, Skv, Hq, Hkv, D], "causal": causal,
               "dtype": dtype, measure: err, "tol": tol, "finite": finite,
-              "masked_rows_zero": masked_zero, "ok": ok})
+              "masked_rows_zero": masked_zero, "ok": ok,
+              **({"route": dkv_route(*args[:4]),
+                  "deterministic": deterministic}
+                 if kernel == "flash_bwd_dkv" else {})})
         require(ok, f"{kernel} parity failed: {name}")
         errs[kernel] = max(_max_err(g, w) for g, w in zip(got, want))
     return errs
@@ -461,15 +504,19 @@ def _zero_counts():
 
     for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv):
         fn.launches = 0
+    flash_bwd_dkv.launches_tc = 0
 
 
 def _train_counts():
+    """Launches of the three training kernels; flash_bwd_dkv_tc counts
+    those of flash_bwd_dkv that took the tensor-core kernel."""
     from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                              flash_bwd_dq)
 
     return {"flash_fwd": flash_attention.launches,
             "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches}
+            "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "flash_bwd_dkv_tc": flash_bwd_dkv.launches_tc}
 
 
 def _model_flops_per_token(cfg, seq):
@@ -523,8 +570,9 @@ def phase_train(torch):
         norms.append(m["grad_norm"].item())
     counts = _train_counts()
     L, steps = cfg.n_layers, 3
+    # every dK/dV launch of the bf16, head_dim-128 step on tensor cores
     want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps}
+            "flash_bwd_dkv": L * steps, "flash_bwd_dkv_tc": L * steps}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     mean_ms = sum(step_ms) / len(step_ms)
@@ -639,8 +687,9 @@ def _reference_train(torch, cfg, params):
           "card_launches": counts})
     require(rel < 1e-4, "card and CPU training losses differ")
     require(p_ok, "card and CPU params differ after 3 steps")
+    # f32 stays on the SIMT dK/dV kernel
     require(counts == {"flash_fwd": 12, "flash_bwd_dq": 6,
-                       "flash_bwd_dkv": 6},
+                       "flash_bwd_dkv": 6, "flash_bwd_dkv_tc": 0},
             f"reference training launches {counts}")
 
 
@@ -789,6 +838,7 @@ def _timing_bwd(torch, launches, max_err):
     flash_attention.launches = saved["flash_fwd"]
     flash_bwd_dq.launches = saved["flash_bwd_dq"]
     flash_bwd_dkv.launches = saved["flash_bwd_dkv"]
+    flash_bwd_dkv.launches_tc = saved["flash_bwd_dkv_tc"]
     return rows
 
 
@@ -868,6 +918,12 @@ def phase_profile(torch):
 
 
 GEMM_WORDS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "wgmma")
+# the CUDA kernels of each training wrapper, as the profiler names them
+# ("<namespace>::flash_bwd_dkv_tc_kernel(...)", "...::flash_fwd_kernel<...>")
+KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel",),
+                "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+                "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
+                                  "flash_bwd_dkv_tc_kernel")}
 
 
 def phase_profile_train(torch):
@@ -893,8 +949,9 @@ def phase_profile_train(torch):
     def ms(events):
         return sum(e.time_range.end - e.time_range.start for e in events) / 1e3
 
-    split = {name: ms([e for e in kernels if name + "_kernel" in e.name])
-             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    split = {name: ms([e for e in kernels
+                       if any(k in e.name for k in names)])
+             for name, names in KERNEL_NAMES.items()}
     split["gemm"] = ms([e for e in kernels if any(
         w in e.name.lower() for w in GEMM_WORDS)])
     if "train.optimizer" in ranges:
@@ -923,7 +980,8 @@ def _row(name, source, replaces, launches, err, ms, plain, nbytes, flops,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib, "bytes": nbytes, "flops": flops}
+            "library_ms": lib, "bytes": nbytes, "flops": flops,
+            "tflop_s": flops / ms / 1e9}
 
 
 def main() -> int:

@@ -22,29 +22,56 @@
 //
 // What bounds them on the H100: at the Llama-3-8B training shape (B=1,
 // S=2048, 32 q / 8 kv heads, D=128, causal) dQ does 3 causal products
-// (51.5 GFLOP) and dK/dV 4 (68.7 GFLOP) on ~60 MB, so on tensor cores both
-// would be bound by operations at ~0.05-0.07 ms. This first version, like
-// flash_fwd.cu, does the products with f32 FMAs out of shared memory (no
-// wgmma, no TMA): one code path for bf16 and f32 (f32 is held at 1e-4),
-// any Sq and Skv (ragged tiles masked), head_dim 64 and 128, inputs read
-// through their strides. It is bound by the f32 FMA rate and shared-memory
-// bandwidth, far from the tensor-core bound; the wgmma/TMA version is work
-// for a later PR.
+// (51.6 GFLOP) and dK/dV 4 (68.8 GFLOP) on ~60 MB, so on tensor cores both
+// are bound by operations, at ~0.05 and ~0.07 ms.
 //
-// Design. dQ: one CTA of 256 threads per (64-row q tile, b * Hq), looping
-// over the 64-row kv tiles up to the causal diagonal (the mirror of
-// flash_fwd's grid). Each thread owns a 4x4 block of S and dP (both built
-// in one pass over D) and a 4 x D/16 block of dQ, accumulated in f32.
-// dK/dV: one CTA per (64-row kv tile, b * Hkv), looping over the n_rep q
-// heads of its GQA group and, for each, over the q tiles from the first one
-// that sees the tile; each thread owns 4 x D/16 blocks of dK and dV. Tiles
-// are staged in shared memory as f32 with rows padded by one word, so the
-// strided reads of the S/dP loop hit distinct banks. Rows and keys past the
-// sequence ends load as zero and are masked by select.
+// Three kernels:
+//
+// flash_bwd_dkv_tc_kernel: dK/dV for bf16 with D = 128 (the training
+// path), on the tensor cores (wgmma), the variant that landed. A CTA is two
+// warpgroups on one 64-row kv tile; the tile's K and V sit in shared memory
+// in the 128-byte-swizzled layout wgmma reads (sm90.cuh). The steps are
+// the (q head of the GQA group, 64-row q tile) pairs that see the kv tile;
+// each warpgroup takes every other step, with its own cp.async double
+// buffer of Q, dO, lse and Dvec (the next step's tiles load while this
+// one's products run). A step runs all four products on wgmma, S and dP
+// transposed so that the kv rows are M: S^T = K Q^T and dP^T = V dO^T
+// (m64n64k16, both operands from shared memory), then dV += P^T dO and
+// dK += dS^T Q (m64n128k16) with A from registers: the bf16 rounding of
+// the S^T and dP^T accumulators is already the A-operand layout, so P and
+// dS never pass through shared memory, and Q and dO are read from the same
+// tiles as B, MN-major. The softmax rebuild of one warpgroup overlaps the
+// other's products. dK and dV stay in f32 registers over every step (128
+// per thread); at the end the second warpgroup's sums go to the first
+// through shared memory, in a fixed order, and are rounded once: no
+// atomics, no scratch, deterministic. The causal work of kv tile j falls
+// with j, so CTA c takes tile c and then tile n_kt - 1 - c: every CTA does
+// n_qt + 1 q tiles per head (132 steps at the 8B shape, 128 CTAs on 132
+// SMs, one wave). What bounds it now is how much of the tensor cores' time
+// two warpgroups keep busy between syncs and softmax, not the bytes.
+//
+// flash_bwd_dkv_kernel (f32, and D = 64) and flash_bwd_dq_kernel (all
+// inputs): the first version, like flash_fwd.cu, with f32 FMAs out of
+// shared memory (no wgmma, no TMA), bound by the f32 FMA rate and shared-
+// memory bandwidth, far from the tensor-core bound; f32 is held at 1e-4.
+// dQ: one CTA of 256 threads per (64-row q tile, b * Hq), looping over the
+// 64-row kv tiles up to the causal diagonal (the mirror of flash_fwd's
+// grid). Each thread owns a 4x4 block of S and dP (both built in one pass
+// over D) and a 4 x D/16 block of dQ, accumulated in f32. dK/dV: one CTA
+// per (64-row kv tile, b * Hkv), looping over the n_rep q heads of its GQA
+// group and, for each, over the q tiles from the first one that sees the
+// tile; each thread owns 4 x D/16 blocks of dK and dV. Tiles are staged in
+// shared memory as f32 with rows padded by one word, so the strided reads
+// of the S/dP loop hit distinct banks.
+//
+// All three take any Sq and Skv: rows and keys past the sequence ends load
+// as zero and are masked by select.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -323,6 +350,271 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 }
 
+// --- dK/dV on tensor cores: bf16, head_dim 128 -----------------------------
+
+namespace tc {
+
+constexpr int D = 128;
+constexpr int BK = 64;   // kv rows per tile: the M of every product
+constexpr int BR = 64;   // q rows per step (32 measured slower)
+constexpr int NWG = 2;   // warpgroups, each on every other step (1 slower)
+constexpr int NT = 128 * NWG;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory, byte offsets from a 1024-byte-aligned base: the K and V
+// tiles, then for each warpgroup two buffers each of Q, dO, lse and Dvec.
+// At the end of a kv tile the second warpgroup's dK and dV (f32) go
+// through the Q buffers to the first.
+constexpr int KV_TILE = BK * D * 2;
+constexpr int Q_TILE = BR * D * 2;
+constexpr int OFF_K = 0;
+constexpr int OFF_V = OFF_K + KV_TILE;
+constexpr int OFF_Q = OFF_V + KV_TILE;               // [NWG][2] tiles
+constexpr int OFF_DO = OFF_Q + 2 * NWG * Q_TILE;     // [NWG][2] tiles
+constexpr int OFF_LSE = OFF_DO + 2 * NWG * Q_TILE;   // [NWG][2][BR] f32
+constexpr int OFF_DVEC = OFF_LSE + 2 * NWG * BR * 4; // [NWG][2][BR] f32
+constexpr int SMEM_BYTES = OFF_DVEC + 2 * NWG * BR * 4 + 1024;  // + slack
+static_assert(2 * NWG * Q_TILE >= 128 * 128 * 4,
+              "the Q buffers hold one warpgroup's dK and dV");
+
+// wait at barrier 1 + wg for the 128 threads of warpgroup wg
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// an accumulator [64 x 16N] rounded to bf16 as the A operand of N k16 steps
+template <int N>
+__device__ __forceinline__ void to_a_operand(const float (&d)[8 * N],
+                                             uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      a[kk][w] = sm90::pack_bf16(d[8 * kk + 2 * w], d[8 * kk + 2 * w + 1]);
+}
+
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
+    Strides st, float scale, int causal) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int n_rep = Hq / Hkv;
+  const int q_off = Skv - Sq;
+  const int n_kt = (Skv + BK - 1) / BK, n_qt = (Sq + BR - 1) / BR;
+  const float scale_log2 = scale * LOG2E;
+  // this thread's accumulator rows (kv) row0 and row0 + 8, and columns
+  // 8j + col0 + {0, 1} (q rows in S^T and dP^T, head_dim in dK and dV)
+  const int row0 = 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+
+  // CTA c takes kv tile c, then (causal) kv tile n_kt - 1 - c: the two
+  // see n_qt + 1 q tiles per head together, so every CTA does the same work
+  const int c = blockIdx.x, mirror = n_kt - 1 - c;
+  const int n_pass = causal && mirror != c ? 2 : 1;
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int k0 = (pass == 0 ? c : mirror) * BK;
+    // the steps: for each of the n_rep q heads, the q tiles from the first
+    // one that sees key k0; warpgroup wg takes steps wg, wg + NWG, ...
+    const int first_row = causal ? k0 - q_off : 0;
+    const int t0 = first_row <= 0 ? 0 : first_row / BR;
+    const int per_rep = max(n_qt - t0, 0);
+    const int n_steps = n_rep * per_rep;
+    const int n_mine = max(n_steps - wg + NWG - 1, 0) / NWG;
+
+    // cp.async of this warpgroup's i-th step (Q, dO, lse, Dvec) into its
+    // buffer i & 1
+    auto load_step = [&](int i) {
+      const int s = wg + NWG * i;
+      const int h = hk * n_rep + s / per_rep;
+      const int q0 = (t0 + s % per_rep) * BR;
+      const int buf = wg * 2 + (i & 1);
+      load_tile_sw128<BR, 128>(base + OFF_Q + buf * Q_TILE,
+                               q + b * st.q_b + h * st.q_h, q0, Sq, st.q_s,
+                               wt);
+      load_tile_sw128<BR, 128>(base + OFF_DO + buf * Q_TILE,
+                               dout + b * st.o_b + h * st.o_h, q0, Sq,
+                               st.o_s, wt);
+      if (wt < 2 * BR) {
+        const int r = wt % BR;
+        const bool in = q0 + r < Sq;
+        const float* src = (wt < BR ? lse : dvec) +
+                           (long long)(b * Hq + h) * Sq + (in ? q0 + r : 0);
+        cp_async_4(base + (wt < BR ? OFF_LSE : OFF_DVEC) + (buf * BR + r) * 4,
+                   src, in ? 4 : 0);
+      }
+    };
+
+    __syncthreads();  // the previous pass is done with K, V and the buffers
+    load_tile_sw128<BK, NT>(base + OFF_K, k + b * st.k_b + hk * st.k_h, k0,
+                            Skv, st.k_s, tid);
+    load_tile_sw128<BK, NT>(base + OFF_V, v + b * st.v_b + hk * st.v_h, k0,
+                            Skv, st.v_s, tid);
+    if (n_mine > 0) load_step(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // K, V and every warpgroup's first step are in
+
+    float acc_k[64], acc_v[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    for (int i = 0; i < n_mine; ++i) {
+      const int buf = wg * 2 + (i & 1);
+      if (i > 0) {
+        cp_async_wait_all();
+        fence_proxy_async();
+        // step i's tiles are in, and the warpgroup is done with step i - 1
+        wg_sync(wg);
+      }
+      if (i + 1 < n_mine) load_step(i + 1);
+      cp_async_commit();
+
+      const int q0 = (t0 + (wg + NWG * i) % per_rep) * BR;
+      const uint32_t qs = base + OFF_Q + buf * Q_TILE;
+      const uint32_t dos = base + OFF_DO + buf * Q_TILE;
+      const float* lse_s =
+          reinterpret_cast<const float*>(sbase + OFF_LSE) + buf * BR;
+      const float* dvec_s =
+          reinterpret_cast<const float*>(sbase + OFF_DVEC) + buf * BR;
+
+      // S^T = K Q^T and dP^T = V dO^T, [BK x BR], head_dim in 8 k16 steps
+      // (K-major: the step moves 32 bytes inside a 64-column panel)
+      float s_acc[BR / 2], dp_acc[BR / 2];
+#pragma unroll
+      for (int i = 0; i < BR / 2; ++i) s_acc[i] = dp_acc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t a = (ks >> 2) * (KV_TILE / 2) + (ks & 3) * 32;
+        const uint32_t bo = (ks >> 2) * (Q_TILE / 2) + (ks & 3) * 32;
+        wgmma_m64n64k16_ss(s_acc, desc_sw128(base + OFF_K + a, 16, 1024),
+                 desc_sw128(qs + bo, 16, 1024), ks);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t a = (ks >> 2) * (KV_TILE / 2) + (ks & 3) * 32;
+        const uint32_t bo = (ks >> 2) * (Q_TILE / 2) + (ks & 3) * 32;
+        wgmma_m64n64k16_ss(dp_acc, desc_sw128(base + OFF_V + a, 16, 1024),
+                 desc_sw128(dos + bo, 16, 1024), ks);
+      }
+      wgmma_commit();
+
+      // P^T = exp(scale S^T - lse), masked entries selected to exactly 0,
+      // while dP^T is still on the tensor cores
+      wgmma_wait<1>();
+      fence_regs(s_acc);
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int col = 8 * j + col0 + cc;
+          const int qr = q0 + col;
+          const float l2 = lse_s[col] * LOG2E;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int kr = k0 + row0 + 8 * i;
+            const bool ok =
+                qr < Sq && kr < Skv && (!causal || kr <= qr + q_off);
+            float& x = s_acc[4 * j + 2 * i + cc];
+            x = ok ? exp2f(fmaf(x, scale_log2, -l2)) : 0.f;
+          }
+        }
+      }
+      // dV += P^T dO: P^T rounded to bf16 (dO's dtype) in registers, dO
+      // read MN-major, its q rows the reduction
+      uint32_t pa[BR / 16][4];
+      to_a_operand(s_acc, pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+        wgmma_m64n128k16_rs_bt(
+            acc_v, pa[kk], desc_sw128(dos + kk * 16 * 128, Q_TILE / 2, 1024));
+      wgmma_commit();
+
+      // dS^T = P^T * (dP^T - Dvec), with the f32 P, while dV runs
+      wgmma_wait<1>();
+      fence_regs(dp_acc);
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float dvc = dvec_s[8 * j + col0 + cc];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 4 * j + 2 * i + cc;
+            dp_acc[idx] = s_acc[idx] * (dp_acc[idx] - dvc);
+          }
+        }
+      }
+      // dK += dS^T Q: dS^T rounded to bf16 (q's dtype), Q read MN-major
+      uint32_t da[BR / 16][4];
+      to_a_operand(dp_acc, da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+        wgmma_m64n128k16_rs_bt(
+            acc_k, da[kk], desc_sw128(qs + kk * 16 * 128, Q_TILE / 2, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pa);
+      fence_regs(da);
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+    }
+
+    // the second warpgroup's sums to the first, in a fixed order: each
+    // thread's registers to the same thread of the first warpgroup, through
+    // the Q buffers
+    float* red = reinterpret_cast<float*>(sbase + OFF_Q);
+    __syncthreads();  // every step is done with the Q buffers
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        red[i * 128 + wt] = acc_k[i];
+        red[(64 + i) * 128 + wt] = acc_v[i];
+      }
+    }
+    __syncthreads();
+    if (wg == 1) continue;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc_k[i] += red[i * 128 + wt];
+      acc_v[i] += red[(64 + i) * 128 + wt];
+    }
+
+    // scale dK, round both to bf16 once, write from registers
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kr = k0 + row0 + 8 * i;
+      if (kr >= Skv) continue;
+      const long long off = (((long long)b * Skv + kr) * Hkv + hk) * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int x = 4 * j + 2 * i;
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+            pack_bf16(acc_k[x] * scale, acc_k[x + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+            pack_bf16(acc_v[x], acc_v[x + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 Strides read_strides(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4],  s[5],
                  s[6], s[7], s[8], s[9], s[10], s[11]};
@@ -363,6 +655,25 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   kern<<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dvec,
       (T*)dk, (T*)dv, Sq, Skv, Hq, Hkv, read_strides(st), scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* dvec, void* dk, void* dv, int B, int Sq,
+                          int Skv, int Hq, int Hkv, const long long* st,
+                          float scale, int causal, cudaStream_t stream) {
+  auto kern = tc::flash_bwd_dkv_tc_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (Skv + tc::BK - 1) / tc::BK;
+  dim3 grid(causal ? (n_kt + 1) / 2 : n_kt, B * Hkv);
+  kern<<<grid, tc::NT, tc::SMEM_BYTES, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, dvec,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, Sq, Skv, Hq, Hkv,
+      read_strides(st), scale, causal);
   return cudaGetLastError();
 }
 
@@ -417,9 +728,24 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dvc, dk, dv, B, Sq,
                                          Skv, Hq, Hkv, strides, scale, causal,
                                          s);
-  if (dtype == 1 && D == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dvc, dk, dv, B,
-                                          Sq, Skv, Hq, Hkv, strides, scale,
-                                          causal, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_bwd_dkv_tc
+}
+
+// As flash_bwd_dkv, on the tensor cores: bf16 (dtype 1) with D = 128 only,
+// q, k, v and dO at 16-byte-aligned addresses with (batch, seq, head)
+// strides in multiples of 8 elements; anything else returns an error.
+extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* dvec, void* dk, void* dv, int B,
+                                int Sq, int Skv, int Hq, int Hkv, int D,
+                                const long long* strides, float scale,
+                                int causal, int dtype, void* stream) {
+  if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
+  unsigned long long bits = (unsigned long long)q | (unsigned long long)k |
+                            (unsigned long long)v | (unsigned long long)dout;
+  for (int i = 0; i < 12; ++i) bits |= (unsigned long long)strides[i] * 2;
+  if (bits % 16) return (int)cudaErrorMisalignedAddress;
+  return launch_dkv_tc(q, k, v, dout, (const float*)lse, (const float*)dvec,
+                       dk, dv, B, Sq, Skv, Hq, Hkv, strides, scale, causal,
+                       (cudaStream_t)stream);
 }

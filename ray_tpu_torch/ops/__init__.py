@@ -3,7 +3,7 @@ kernels behind ``flash_attention`` (forward), ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` (backward) and ``paged_decode_attention``."""
 
 from .attention import (FlashAttention, attention, blockwise_attention,
-                        flash_attention, flash_attention_bwd,
+                        dkv_route, flash_attention, flash_attention_bwd,
                         flash_attention_bwd_reference,
                         flash_attention_reference, flash_bwd_dkv,
                         flash_bwd_dkv_reference, flash_bwd_dq,
@@ -15,9 +15,9 @@ from .rotary import apply_rotary, rope_frequencies
 
 __all__ = [
     "FlashAttention", "apply_rotary", "attention", "blockwise_attention",
-    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_reference",
-    "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dkv_reference",
-    "flash_bwd_dq", "flash_bwd_dq_reference", "naive_attention",
-    "paged_decode_attention", "paged_decode_attention_reference", "rms_norm",
-    "rope_frequencies",
+    "dkv_route", "flash_attention", "flash_attention_bwd",
+    "flash_attention_bwd_reference", "flash_attention_reference",
+    "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
+    "flash_bwd_dq_reference", "naive_attention", "paged_decode_attention",
+    "paged_decode_attention_reference", "rms_norm", "rope_frequencies",
 ]

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), at first use, into ``ray_tpu_torch/_kernels_build/``. Library
-names carry a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Only the repository's own
-sources are built; nothing is fetched.
+names carry a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Sources
+include headers from ``csrc/`` only (``sm90.cuh``), and no ``-I`` path is
+given. Only the repository's own sources are built; nothing is fetched.
 
 The C entry points take pointers and the stream as ``c_void_p`` and
 return ``cudaGetLastError()``; :func:`check` raises when it is not 0.
@@ -31,7 +32,8 @@ BUILD_DIR = _PKG / "_kernels_build"
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_decode": "paged_decode.cu"}
 ENTRIES = {"flash_fwd": ("flash_fwd",),
-           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv",
+                         "flash_bwd_dkv_tc"),
            "paged_decode": ("paged_decode",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -56,6 +58,7 @@ _ARGTYPES = {
     "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _F, _I, _P],
 }
+_ARGTYPES["flash_bwd_dkv_tc"] = _ARGTYPES["flash_bwd_dkv"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -76,9 +79,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    """The library's path, named by a hash of its source, of every header
+    in ``csrc/`` (a source may include any of them) and of the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

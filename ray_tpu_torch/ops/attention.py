@@ -247,6 +247,12 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
     return dq, dk, dv
 
 
+def _steps(t):
+    """t's strides with 0 for each dimension of size 1: the kernels never
+    step along one (autograd's dO at B=1 has batch stride 1)."""
+    return tuple(st if n > 1 else 0 for n, st in zip(t.shape, t.stride()))
+
+
 def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
     """Checks what the backward kernels take and returns the shared tail
     of their C arguments, or raises."""
@@ -269,7 +275,7 @@ def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
         raise ValueError(f"flash backward kernels take B * Hq <= 65535, "
                          f"got {b * hq}")
     strides = (ctypes.c_longlong * 12)(*[
-        t.stride(i) for t in (q, k, v, do) for i in range(3)])
+        st for t in (q, k, v, do) for st in _steps(t)[:3]])
     return (b, sq, k.shape[1], hq, k.shape[2], d,
             ctypes.cast(strides, ctypes.c_void_p), float(scale)), strides
 
@@ -301,12 +307,33 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
 flash_bwd_dq.launches = 0
 
 
+def dkv_route(q, k, v, do) -> str:
+    """Which dK/dV kernel takes these inputs: ``"tc"``, the tensor-core
+    kernel, for bf16 with head_dim 128 whose q, k, v and dO start at
+    16-byte-aligned addresses and have (batch, seq, head) strides in
+    multiples of 8 elements (16 bytes; a dimension of size 1 is never
+    stepped, so its stride does not count); ``"simt"`` for every other dtype
+    and head_dim (f32, head_dim 64). Raises for bf16 with head_dim 128 that
+    is not so aligned. Whether the kernels take the dtype and head_dim at
+    all is :func:`_bwd_launch_args`'s check."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 128:
+        return "simt"
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+        if t.data_ptr() % 16 or any(st % 8 for st in _steps(t)[:3]):
+            raise ValueError(
+                f"flash_bwd_dkv: bf16 head_dim 128 needs {name} at a "
+                f"16-byte-aligned address with strides in multiples of 8, "
+                f"got offset {t.data_ptr() % 16} and strides {t.stride()}")
+    return "tc"
+
+
 def flash_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,
                   scale: Optional[float] = None):
     """(dK, dV) of flash attention, each GQA group summed. On a CUDA tensor
-    it launches the dK/dV kernel (``csrc/flash_bwd.cu``) or raises for what
-    it does not take; on a CPU tensor it runs
-    :func:`flash_bwd_dkv_reference`."""
+    it launches the dK/dV kernel that :func:`dkv_route` picks (the
+    tensor-core kernel for bf16 with head_dim 128, the SIMT kernel
+    otherwise, both in ``csrc/flash_bwd.cu``) or raises for what neither
+    takes; on a CPU tensor it runs :func:`flash_bwd_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, dvec, causal=causal,
                                        scale=scale)
@@ -314,20 +341,27 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,
         raise ValueError(f"flash_bwd_dkv: no kernel for {q.device}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     args, _keep = _bwd_launch_args(q, k, v, do, lse, dvec, scale)
+    route = dkv_route(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    err = _kernels.lib("flash_bwd").flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args,
-        int(causal), _FLASH_DTYPES[q.dtype], _kernels.stream_ptr(q.device))
+    lib = _kernels.lib("flash_bwd")
+    fn = lib.flash_bwd_dkv_tc if route == "tc" else lib.flash_bwd_dkv
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *args, int(causal), _FLASH_DTYPES[q.dtype],
+             _kernels.stream_ptr(q.device))
     _kernels.check("flash_bwd_dkv", err)
     flash_bwd_dkv.launches += 1
+    if route == "tc":
+        flash_bwd_dkv.launches_tc += 1
     return dk, dv
 
 
+# every launch, and those of the tensor-core kernel alone
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_tc = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

@@ -132,6 +132,13 @@ def test_kernels_count_launches_and_refuse_what_they_do_not_take(gen):
     bad[5] = args[5].long()
     with pytest.raises(ValueError):                     # int64 table
         paged_decode_attention(*bad)
+    n = 16 * 2 * 128
+    x = _randn(gen, (n + 8,), torch.bfloat16)[1:n + 1].view(1, 16, 2, 128)
+    lse = torch.zeros((1, 2, 16), device="cuda")
+    d0 = flash_bwd_dkv.launches
+    with pytest.raises(ValueError):                     # 2-byte offset
+        flash_bwd_dkv(x, x, x, x, lse, lse)
+    assert flash_bwd_dkv.launches == d0
     assert (flash_attention.launches, paged_decode_attention.launches) == (
         f0, p0)
     q = _randn(gen, (1, 16, 2, 64))
@@ -188,11 +195,19 @@ def _bwd_args(gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
     (1, 512, 512, 32, 8, 128, True, torch.bfloat16),   # 8B heads
     (2, 96, 64, 4, 2, 128, True, torch.bfloat16),      # rows with no key
     (1, 128, 384, 8, 2, 64, True, torch.bfloat16),     # Sq < Skv, D=64
+    # bf16, D=128: the tensor-core dK/dV kernel
+    (1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),  # 8B training shape
+    (2, 100, 100, 4, 2, 128, True, torch.bfloat16),    # ragged Skv
+    (1, 320, 320, 8, 2, 128, True, torch.bfloat16),    # odd tile count
+    (1, 128, 384, 8, 2, 128, True, torch.bfloat16),    # Sq < Skv
+    (2, 256, 256, 8, 8, 128, False, torch.bfloat16),   # non-causal
+    (2, 192, 192, 4, 4, 128, True, torch.bfloat16),    # Hq == Hkv
 ])
 def test_backward_kernels_match_plain_versions_on_card(
         gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
     """f32 at 1e-4; bf16 within the reference's relative 2e-2 (max error
-    over the largest magnitude). Rows that see no key give dQ = 0."""
+    over the largest magnitude). Rows that see no key give dQ = 0 (and add
+    nothing to dK, dV: the plain version selects them to 0 too)."""
     args = _bwd_args(gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype)
     got = (flash_bwd_dq(*args, causal=causal),
            *flash_bwd_dkv(*args, causal=causal))
@@ -208,6 +223,39 @@ def test_backward_kernels_match_plain_versions_on_card(
             assert err < 2e-2, err
     if causal and Sq > Skv:
         assert got[0][:, :Sq - Skv].abs().max() == 0
+
+
+def test_dkv_tensor_core_kernel_is_deterministic_on_card(gen):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = _bwd_args(gen, 1, 512, 512, 32, 8, 128, True, torch.bfloat16)
+    first = flash_bwd_dkv(*args)
+    for a, b in zip(first, flash_bwd_dkv(*args)):
+        assert torch.equal(a, b)
+
+
+def test_dkv_tensor_core_kernel_takes_autograds_do_at_b1_on_card(gen):
+    """At B=1 autograd may hand dO with batch stride 1: the kernel never
+    steps along that dimension and gives the same bits."""
+    q, k, v, do, lse, dvec = _bwd_args(gen, 1, 256, 256, 8, 2, 128, True,
+                                       torch.bfloat16)
+    odd = do.as_strided(do.shape, (1,) + do.stride()[1:])
+    for a, b in zip(flash_bwd_dkv(q, k, v, odd, lse, dvec),
+                    flash_bwd_dkv(q, k, v, do, lse, dvec)):
+        assert torch.equal(a, b)
+
+
+def test_dkv_launches_tc_counts_only_the_tensor_core_kernel_on_card(gen):
+    """bf16 with head_dim 128 takes the tensor-core kernel; f32 and
+    head_dim 64 stay on the SIMT kernel."""
+    cases = [((1, 64, 64, 4, 2, 128, True, torch.bfloat16), 1),
+             ((1, 64, 64, 4, 2, 128, True, torch.float32), 0),
+             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 0)]
+    for shape, tc in cases:
+        args = _bwd_args(gen, *shape)
+        n0 = (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc)
+        flash_bwd_dkv(*args)
+        assert (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc) == (
+            n0[0] + 1, n0[1] + tc)
 
 
 def test_attention_grads_on_card_match_autograd_through_naive(gen):

@@ -23,8 +23,9 @@ from ray_tpu.ops.paged_attention import (
     paged_decode_attention as j_paged,
     paged_decode_attention_reference as j_paged_ref)
 
-from ray_tpu_torch.ops import (FlashAttention, apply_rotary, attention,
-                               blockwise_attention, flash_attention,
+from ray_tpu_torch.ops import (FlashAttention, _kernels, apply_rotary,
+                               attention, blockwise_attention, dkv_route,
+                               flash_attention,
                                flash_attention_bwd,
                                flash_attention_bwd_reference,
                                flash_attention_reference, flash_bwd_dkv,
@@ -395,3 +396,71 @@ def test_bwd_wrappers_split_the_plain_backward_and_refuse_meta():
         with pytest.raises(ValueError):
             fn(*m, ml, md)
     assert flash_bwd_dq.launches == 0 and flash_bwd_dkv.launches == 0
+
+
+def _view(shape, dtype, *, offset=0, width=None):
+    """A [B, S, H, D] CPU tensor whose storage starts ``offset`` elements
+    into its buffer, its rows ``width`` elements apart (D when None)."""
+    b, s, h, d = shape
+    width = width or d
+    flat = torch.zeros(b * s * h * width + offset, dtype=dtype)
+    return flat[offset:].view(b, s, h, width)[..., :d]
+
+
+@pytest.mark.parametrize("dtype,d,offset,width,want", [
+    (torch.bfloat16, 128, 0, None, "tc"),     # the training path
+    (torch.bfloat16, 128, 0, 136, "tc"),      # rows 272 bytes apart
+    (torch.float32, 128, 0, None, "simt"),
+    (torch.bfloat16, 64, 0, None, "simt"),
+    (torch.float32, 64, 1, None, "simt"),     # SIMT reads any alignment
+    (torch.bfloat16, 128, 1, None, None),     # base 2 bytes off: raises
+    (torch.bfloat16, 128, 0, 130, None),      # rows 260 bytes apart: raises
+])
+def test_dkv_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
+        dtype, d, offset, width, want):
+    """The rule behind flash_bwd_dkv on a CUDA tensor, on CPU tensors."""
+    q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
+    k = torch.zeros((1, 8, 2, d), dtype=dtype)
+    if want is None:
+        with pytest.raises(ValueError, match="16-byte"):
+            dkv_route(q, k, k, q)
+        with pytest.raises(ValueError, match="16-byte"):
+            dkv_route(k, q, k, k)
+    else:
+        assert dkv_route(q, k, k, q) == want
+        assert dkv_route(k, q, q, k) == want
+
+
+def test_dkv_route_ignores_the_stride_of_a_size_one_dimension():
+    """autograd's dO at B=1 can carry batch stride 1; no row is ever
+    addressed through it."""
+    buf = torch.zeros(8 * 4 * 128 + 1, dtype=torch.bfloat16)
+    do = buf.as_strided((1, 8, 4, 128), (1, 512, 128, 1))
+    k = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    assert dkv_route(do, k, k, do) == "tc"
+    two = buf.as_strided((2, 8, 4, 128), (1, 512, 128, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        dkv_route(two, k, k, two)
+
+
+def test_kernel_library_name_follows_sources_headers_and_flags(
+        tmp_path, monkeypatch):
+    """An edited header (or source, or flag) names a new library, so a
+    stale one is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _kernels.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    names = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    assert names == {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    edited = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    assert all(edited[n] != names[n] for n in names)
+    (csrc / "flash_bwd.cu").write_text("// edited\n")
+    assert _kernels._lib_path("flash_bwd") != edited["flash_bwd"]
+    assert _kernels._lib_path("flash_fwd") == edited["flash_fwd"]
+    monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-G",))
+    assert _kernels._lib_path("flash_fwd") != edited["flash_fwd"]
