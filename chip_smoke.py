@@ -103,8 +103,12 @@ def _ptxas(log):
     return out
 
 
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+              "flash_bwd_dkv_tc_kernel")
+
+
 def phase_build():
-    """Build every kernel; the tensor-core dK/dV kernel must not spill."""
+    """Build every kernel; no tensor-core kernel may spill."""
     from ray_tpu_torch.ops import _kernels
 
     paths = _kernels.build_all()
@@ -117,10 +121,11 @@ def phase_build():
     emit({"phase": "build", "seconds": round(_kernels.build_seconds, 3),
           "libraries": sorted(p.name for p in paths.values()),
           "ptxas": kernels})
-    tc = [v for k, v in kernels.items() if "flash_bwd_dkv_tc" in k]
     if _kernels.build_log:    # a library already built has no log here
-        require(len(tc) == 1 and tc[0].get("spill_bytes") == 0,
-                f"flash_bwd_dkv_tc spills or is missing: {tc}")
+        for tc in TC_KERNELS:
+            got = kernels.get(tc, {})
+            require(got.get("spill_bytes") == 0,
+                    f"{tc} spills or is missing: {got}")
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -128,7 +133,12 @@ def phase_build():
 FLASH_CASES = [
     # name, B, Sq, Skv, Hq, Hkv, D, causal, dtype, strided
     ("8b_prefill", 1, 512, 512, 32, 8, 128, True, "bf16", False),
+    ("8b_train", 1, 2048, 2048, 32, 8, 128, True, "bf16", False),
+    ("8b_batched_prefill", 8, 512, 512, 32, 8, 128, True, "bf16", False),
     ("sq_lt_skv", 1, 128, 384, 8, 2, 128, True, "bf16", False),
+    ("sq_gt_skv", 2, 96, 64, 4, 2, 128, True, "bf16", False),
+    ("odd_tiles", 1, 320, 320, 8, 2, 128, True, "bf16", False),
+    ("mha", 2, 192, 192, 4, 4, 128, True, "bf16", False),
     ("ragged_100", 2, 100, 100, 4, 2, 128, True, "bf16", False),
     ("non_causal", 2, 256, 256, 8, 8, 128, False, "bf16", False),
     ("d64", 1, 200, 200, 8, 4, 64, True, "bf16", False),
@@ -222,7 +232,8 @@ def _close(torch, got, want, tol):
 
 def phase_parity(torch):
     from ray_tpu_torch.ops.attention import (flash_attention,
-                                             flash_attention_reference)
+                                             flash_attention_reference,
+                                             fwd_route)
     from ray_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_reference)
 
@@ -232,18 +243,30 @@ def phase_parity(torch):
         q, k, v = _flash_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype,
                                 strided)
         out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        again = flash_attention(q, k, v, causal=causal, return_lse=True)
         torch.cuda.synchronize()
+        # no atomics: a second launch gives the same bits
+        deterministic = torch.equal(out, again[0]) and torch.equal(
+            lse, again[1])
         ref, ref_lse = flash_attention_reference(q, k, v, causal=causal)
         tol = 2e-2 if dtype == "bf16" else 1e-4
         lse_tol = 5e-3 if dtype == "bf16" else 1e-4
         err, lse_err = _max_err(out, ref), _max_err(lse, ref_lse)
         ok = (_close(torch, out, ref, tol)
               and _close(torch, lse, ref_lse, lse_tol)
-              and bool(torch.isfinite(out.float()).all()))
+              and bool(torch.isfinite(out.float()).all()) and deterministic)
+        masked_zero = None
+        if causal and Sq > Skv:
+            # rows that see no key give exactly 0
+            masked_zero = bool((out[:, :Sq - Skv] == 0).all())
+            ok = ok and masked_zero
         emit({"phase": "parity", "kernel": "flash_fwd", "case": name,
               "shape": [B, Sq, Skv, Hq, Hkv, D], "causal": causal,
-              "dtype": dtype, "max_abs_err": err, "lse_max_abs_err": lse_err,
-              "tol": tol, "lse_tol": lse_tol, "ok": ok})
+              "dtype": dtype, "route": fwd_route(q, k, v),
+              "max_abs_err": err, "lse_max_abs_err": lse_err,
+              "tol": tol, "lse_tol": lse_tol,
+              "masked_rows_zero": masked_zero,
+              "deterministic": deterministic, "ok": ok})
         require(ok, f"flash_fwd parity failed: {name}")
         results.setdefault("flash_fwd", []).append(max(err, lse_err))
 
@@ -301,7 +324,8 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
     bf16 within the reference's relative 2e-2 (max error over the largest
     magnitude), f32 within 1e-4 abs/rel; rows that see no key (causal,
     Sq > Skv) must give exactly 0, and nothing may be NaN."""
-    from ray_tpu_torch.ops.attention import (dkv_route, flash_bwd_dkv,
+    from ray_tpu_torch.ops.attention import (dkv_route, dq_route,
+                                             flash_bwd_dkv,
                                              flash_bwd_dkv_reference,
                                              flash_bwd_dq,
                                              flash_bwd_dq_reference)
@@ -311,14 +335,17 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
                              (flash_bwd_dq_reference(*args, causal=causal),)),
             "flash_bwd_dkv": (flash_bwd_dkv(*args, causal=causal),
                               flash_bwd_dkv_reference(*args, causal=causal))}
-    again = flash_bwd_dkv(*args, causal=causal)
+    again = {"flash_bwd_dq": (flash_bwd_dq(*args, causal=causal),),
+             "flash_bwd_dkv": flash_bwd_dkv(*args, causal=causal)}
+    routes = {"flash_bwd_dq": dq_route(*args[:4]),
+              "flash_bwd_dkv": dkv_route(*args[:4])}
     torch.cuda.synchronize()
-    # no atomics: a second launch gives the same bits
-    deterministic = all(torch.equal(a, b) for a, b in zip(
-        again, outs["flash_bwd_dkv"][0]))
-    require(deterministic, f"flash_bwd_dkv is not deterministic: {name}")
     errs = {}
     for kernel, (got, want) in outs.items():
+        # no atomics: a second launch gives the same bits
+        deterministic = all(torch.equal(a, b)
+                            for a, b in zip(again[kernel], got))
+        require(deterministic, f"{kernel} is not deterministic: {name}")
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         if dtype == "bf16":
             err = max(_rel_err(g, w) for g, w in zip(got, want))
@@ -335,11 +362,9 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
             ok = ok and masked_zero
         emit({"phase": "parity", "kernel": kernel, "case": name,
               "shape": [B, Sq, Skv, Hq, Hkv, D], "causal": causal,
-              "dtype": dtype, measure: err, "tol": tol, "finite": finite,
-              "masked_rows_zero": masked_zero, "ok": ok,
-              **({"route": dkv_route(*args[:4]),
-                  "deterministic": deterministic}
-                 if kernel == "flash_bwd_dkv" else {})})
+              "dtype": dtype, "route": routes[kernel], measure: err,
+              "tol": tol, "finite": finite, "masked_rows_zero": masked_zero,
+              "deterministic": deterministic, "ok": ok})
         require(ok, f"{kernel} parity failed: {name}")
         errs[kernel] = max(_max_err(g, w) for g, w in zip(got, want))
     return errs
@@ -372,7 +397,7 @@ def phase_engine(torch):
                                                       max_tokens=9))
     torch.cuda.synchronize()
 
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_tc = 0
     paged_decode_attention.launches = 0
     before = engine.stats()
     # TTFT of the 511-token prompt on an idle engine (one prefill step)
@@ -431,6 +456,7 @@ def phase_engine(torch):
     want_paged = L * counts["paged_decode_steps"]
     emit({"phase": "engine_counts", **counts,
           "flash_fwd_launches": flash_attention.launches,
+          "flash_fwd_tc_launches": flash_attention.launches_tc,
           "paged_decode_launches": paged_decode_attention.launches,
           "expected_flash": want_flash, "expected_paged": want_paged})
     require(counts["prefills"] >= 8 and counts["prefill_chunks"] == 2,
@@ -439,6 +465,9 @@ def phase_engine(torch):
             "a decode burst did not take the paged kernel")
     require(flash_attention.launches == want_flash,
             "flash_fwd launches differ from n_layers per prefill")
+    # every 8B prefill (bf16, head_dim 128) on the tensor-core kernel
+    require(flash_attention.launches_tc == want_flash,
+            "an 8B flash_fwd launch did not take the tensor-core kernel")
     require(paged_decode_attention.launches == want_paged > 0,
             "paged_decode launches differ from n_layers * K per burst")
     launches = {"flash_fwd": flash_attention.launches,
@@ -498,25 +527,32 @@ def _paged_vs_gather(torch, engine, params, cfg, prompts):
     return outs[True]
 
 
-def _zero_counts():
+def _train_wrappers():
     from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                              flash_bwd_dq)
 
-    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv):
-        fn.launches = 0
-    flash_bwd_dkv.launches_tc = 0
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def _zero_counts():
+    for fn in _train_wrappers().values():
+        fn.launches = fn.launches_tc = 0
 
 
 def _train_counts():
-    """Launches of the three training kernels; flash_bwd_dkv_tc counts
-    those of flash_bwd_dkv that took the tensor-core kernel."""
-    from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
-                                             flash_bwd_dq)
+    """Launches of the three training kernels; <name>_tc counts those of
+    <name> that took the tensor-core kernel."""
+    counts = {}
+    for name, fn in _train_wrappers().items():
+        counts[name] = fn.launches
+        counts[name + "_tc"] = fn.launches_tc
+    return counts
 
-    return {"flash_fwd": flash_attention.launches,
-            "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches,
-            "flash_bwd_dkv_tc": flash_bwd_dkv.launches_tc}
+
+def _set_train_counts(counts):
+    for name, fn in _train_wrappers().items():
+        fn.launches, fn.launches_tc = counts[name], counts[name + "_tc"]
 
 
 def _model_flops_per_token(cfg, seq):
@@ -570,9 +606,10 @@ def phase_train(torch):
         norms.append(m["grad_norm"].item())
     counts = _train_counts()
     L, steps = cfg.n_layers, 3
-    # every dK/dV launch of the bf16, head_dim-128 step on tensor cores
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps, "flash_bwd_dkv_tc": L * steps}
+    # every launch of the bf16, head_dim-128 step on tensor cores
+    per_run = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+               "flash_bwd_dkv": L * steps}
+    want = {**per_run, **{k + "_tc": n for k, n in per_run.items()}}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     mean_ms = sum(step_ms) / len(step_ms)
@@ -618,6 +655,7 @@ def phase_reference(torch):
                for n in (5, 16, 33, 70)]
     sp = SamplingParams(temperature=0.0, max_tokens=24)
     streams = {}
+    _zero_counts()
     for dev, p in (("cpu", params), ("cuda", on_card)):
         for chunk in (0, 32):
             ecfg = EngineConfig(max_num_seqs=4, page_size=16, num_pages=64,
@@ -628,12 +666,18 @@ def phase_reference(torch):
     torch.cuda.synchronize()
     same = {chunk: streams["cuda", chunk] == streams["cpu", chunk]
             for chunk in (0, 32)}
+    counts = _train_counts()
     emit({"phase": "reference", "model": "2-layer f32, head_dim 128",
           "requests": len(prompts), "tokens_each": sp.max_tokens,
           "card_equals_cpu": same[0],
-          "card_equals_cpu_chunked": same[32]})
+          "card_equals_cpu_chunked": same[32],
+          "flash_fwd_launches": counts["flash_fwd"],
+          "flash_fwd_tc_launches": counts["flash_fwd_tc"]})
     require(all(same.values()),
             "greedy streams on the card differ from the CPU's")
+    # f32 serves through the SIMT forward kernel
+    require(counts["flash_fwd"] > 0 and counts["flash_fwd_tc"] == 0,
+            f"reference serving launches {counts}")
     _reference_train(torch, cfg, params)
 
 
@@ -687,8 +731,9 @@ def _reference_train(torch, cfg, params):
           "card_launches": counts})
     require(rel < 1e-4, "card and CPU training losses differ")
     require(p_ok, "card and CPU params differ after 3 steps")
-    # f32 stays on the SIMT dK/dV kernel
-    require(counts == {"flash_fwd": 12, "flash_bwd_dq": 6,
+    # f32 stays on the SIMT kernels: no tensor-core launch
+    require(counts == {"flash_fwd": 12, "flash_fwd_tc": 0,
+                       "flash_bwd_dq": 6, "flash_bwd_dq_tc": 0,
                        "flash_bwd_dkv": 6, "flash_bwd_dkv_tc": 0},
             f"reference training launches {counts}")
 
@@ -699,13 +744,17 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     """Mean device time of ``fn`` over ``iters`` calls, each timed alone
     with CUDA events and preceded by a write of 128 MB, which evicts the
     50 MB L2: on the serving path a layer's weights pass through L2
-    between two attention calls, so the kernels find their inputs cold."""
+    between two attention calls, so the kernels find their inputs cold.
+    A ~1 ms spin on the device before the start event lets the host queue
+    all of ``fn`` first, so the time is the device's alone, without the
+    wrapper's host time."""
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -714,6 +763,16 @@ def _time_ms(torch, fn, iters=20, warmup=3):
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def _clocks():
+    """The card's SM clock, power draw and throttle reasons now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip()
 
 
 def phase_timing(torch, launches, max_err):
@@ -726,6 +785,7 @@ def phase_timing(torch, launches, max_err):
 
     rows = []
     saved = (flash_attention.launches, paged_decode_attention.launches)
+    clocks_before = _clocks()
 
     # flash forward at the 8B prefill shape
     _, B, Sq, Skv, Hq, Hkv, D, causal, _, _ = FLASH_CASES[0]
@@ -779,6 +839,9 @@ def phase_timing(torch, launches, max_err):
                      plain, nbytes, flops, lib))
     flash_attention.launches, paged_decode_attention.launches = saved
     rows += _timing_bwd(torch, launches, max_err)
+    # "sm MHz, max sm MHz, power draw, temperature, throttle reasons"
+    emit({"phase": "timing_clocks", "before": clocks_before,
+          "after": _clocks()})
     for r in rows:
         emit({"phase": "timing", **r})
     return rows
@@ -786,10 +849,11 @@ def phase_timing(torch, launches, max_err):
 
 def _timing_bwd(torch, launches, max_err):
     """Both backward kernels at the 8B training shape (B=1, S=2048, 32 q
-    and 8 kv heads, D=128, causal, bf16), and the forward kernel there for
-    comparison. The library yardstick is one SDPA backward (enable_gqa,
-    from a retained graph), which computes dQ, dK and dV together: its
-    time stands on both rows."""
+    and 8 kv heads, D=128, causal, bf16), and the forward kernel there
+    beside one SDPA forward (enable_gqa, causal). The backward rows'
+    library yardstick is one SDPA backward (enable_gqa, from a retained
+    graph), which computes dQ, dK and dV together: its time stands on
+    both rows."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
@@ -803,11 +867,15 @@ def _timing_bwd(torch, launches, max_err):
     q, k, v, do, lse, dvec = args
     pairs = sum(min(Skv, max(0, i + Skv - Sq + 1)) for i in range(Sq))
     mm_flops = 2 * D * pairs * B * Hq        # one causal product
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fwd_ms = _time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    fwd_lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
     emit({"phase": "timing_extra", "name": "flash_fwd",
           "shape": "8b training, B=1, S=2048", "ms": fwd_ms,
-          "flops": 2 * mm_flops,
-          "bound_ms": 2 * mm_flops / BF16_FLOPS * 1e3})
+          "library_ms": fwd_lib, "flops": 2 * mm_flops,
+          "bound_ms": 2 * mm_flops / BF16_FLOPS * 1e3,
+          "tflop_s": 2 * mm_flops / fwd_ms / 1e9})
 
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True,
@@ -835,10 +903,7 @@ def _timing_bwd(torch, launches, max_err):
                      launches.get("flash_bwd_dkv", 0),
                      max_err.get("flash_bwd_dkv"), ms, plain,
                      2 * qb + 4 * kb + 2 * lb, 4 * mm_flops, lib))
-    flash_attention.launches = saved["flash_fwd"]
-    flash_bwd_dq.launches = saved["flash_bwd_dq"]
-    flash_bwd_dkv.launches = saved["flash_bwd_dkv"]
-    flash_bwd_dkv.launches_tc = saved["flash_bwd_dkv_tc"]
+    _set_train_counts(saved)
     return rows
 
 
@@ -920,8 +985,9 @@ def phase_profile(torch):
 GEMM_WORDS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "wgmma")
 # the CUDA kernels of each training wrapper, as the profiler names them
 # ("<namespace>::flash_bwd_dkv_tc_kernel(...)", "...::flash_fwd_kernel<...>")
-KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel",),
-                "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
+                "flash_bwd_dq": ("flash_bwd_dq_kernel",
+                                 "flash_bwd_dq_tc_kernel"),
                 "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
                                   "flash_bwd_dkv_tc_kernel")}
 

@@ -25,7 +25,25 @@
 // (51.6 GFLOP) and dK/dV 4 (68.8 GFLOP) on ~60 MB, so on tensor cores both
 // are bound by operations, at ~0.05 and ~0.07 ms.
 //
-// Three kernels:
+// Four kernels:
+//
+// flash_bwd_dq_tc_kernel: dQ for bf16 with D = 128 (the training path), on
+// the tensor cores (wgmma), the mirror of the dK/dV kernel below with the
+// q tile as M, and the same CTA and grid as flash_fwd_tc_kernel: two
+// warpgroups on 128 q rows of one (b, q head), each on its own 64 rows,
+// whose Q and dO tiles (128-byte-swizzled) and lse and Dvec (registers)
+// stay for the whole kernel; K and V stream through a cp.async double
+// buffer both share, the next kv tile loading while this one's products
+// run. Per kv tile: S = Q K^T and dP = dO V^T (m64n64k16, all operands
+// K-major from shared memory), P = exp2(S scale log2e - lse log2e) with
+// masked entries selected to exactly 0 (only on the tiles the diagonal or
+// the end of the keys cuts) while dP is still running, dS = P (dP - Dvec)
+// in f32, then dQ += dS K (m64n128k16) with dS rounded to bf16 as the A
+// operand in registers and K read MN-major from the same tile S read
+// K-major. dQ stays in 64 f32 registers per thread and is scaled and
+// rounded once: no atomics, no scratch, deterministic. Causal CTAs launch
+// heaviest q block first. Bound, like the forward, by how much of the
+// tensor cores' time two warpgroups keep busy between syncs.
 //
 // flash_bwd_dkv_tc_kernel: dK/dV for bf16 with D = 128 (the training
 // path), on the tensor cores (wgmma), the variant that landed. A CTA is two
@@ -50,8 +68,8 @@
 // SMs, one wave). What bounds it now is how much of the tensor cores' time
 // two warpgroups keep busy between syncs and softmax, not the bytes.
 //
-// flash_bwd_dkv_kernel (f32, and D = 64) and flash_bwd_dq_kernel (all
-// inputs): the first version, like flash_fwd.cu, with f32 FMAs out of
+// flash_bwd_dkv_kernel and flash_bwd_dq_kernel (f32, and D = 64): the
+// first version, like flash_fwd.cu's SIMT kernel, with f32 FMAs out of
 // shared memory (no wgmma, no TMA), bound by the f32 FMA rate and shared-
 // memory bandwidth, far from the tensor-core bound; f32 is held at 1e-4.
 // dQ: one CTA of 256 threads per (64-row q tile, b * Hq), looping over the
@@ -64,7 +82,7 @@
 // shared memory as f32 with rows padded by one word, so the strided reads
 // of the S/dP loop hit distinct banks.
 //
-// All three take any Sq and Skv: rows and keys past the sequence ends load
+// All four take any Sq and Skv: rows and keys past the sequence ends load
 // as zero and are masked by select.
 
 #include <cuda_runtime.h>
@@ -382,17 +400,6 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-// an accumulator [64 x 16N] rounded to bf16 as the A operand of N k16 steps
-template <int N>
-__device__ __forceinline__ void to_a_operand(const float (&d)[8 * N],
-                                             uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N; ++kk)
-#pragma unroll
-    for (int w = 0; w < 4; ++w)
-      a[kk][w] = sm90::pack_bf16(d[8 * kk + 2 * w], d[8 * kk + 2 * w + 1]);
-}
-
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
@@ -613,6 +620,182 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
   }
 }
 
+// --- dQ on tensor cores: bf16, head_dim 128 --------------------------------
+
+// shared memory: each warpgroup's Q and dO tiles, then two stages each of
+// K and V
+constexpr int DQ_OFF_Q = 0;
+constexpr int DQ_OFF_DO = DQ_OFF_Q + NWG * Q_TILE;
+constexpr int DQ_OFF_K = DQ_OFF_DO + NWG * Q_TILE;
+constexpr int DQ_OFF_V = DQ_OFF_K + 2 * KV_TILE;
+constexpr int DQ_SMEM_BYTES = DQ_OFF_V + 2 * KV_TILE + 1024;  // + slack
+constexpr int DQ_BQ = BR * NWG;   // q rows per CTA
+
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq, int Sq,
+    int Skv, int Hq, int Hkv, Strides st, float scale, int causal) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q_off = Skv - Sq;
+  // heaviest causal q block first: block x takes q block n_qb - 1 - x
+  const int n_qb = (Sq + DQ_BQ - 1) / DQ_BQ;
+  const int q0 = (n_qb - 1 - (int)blockIdx.x) * DQ_BQ;
+  const int qw = q0 + BR * wg;   // this warpgroup's first q row
+  // this thread's accumulator rows qw + row0 + 8i and columns
+  // 8j + col0 + {0, 1} (keys in S and dP, head_dim in dQ)
+  const int row0 = 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+
+  int n_tiles = (Skv + BK - 1) / BK;
+  if (causal) {
+    const int last_key = min(q0 + DQ_BQ, Sq) - 1 + q_off;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BK + 1);
+  }
+  const int wg_rows = max(min(BR, Sq - qw), 0);
+  const int wg_last = wg_rows == 0 ? -1
+                      : causal     ? min(qw + wg_rows - 1 + q_off, Skv - 1)
+                                   : Skv - 1;
+
+  const __nv_bfloat16* kb = k + b * st.k_b + hk * st.k_h;
+  const __nv_bfloat16* vb = v + b * st.v_b + hk * st.v_h;
+  const uint32_t qs = base + DQ_OFF_Q + wg * Q_TILE;
+  const uint32_t dos = base + DQ_OFF_DO + wg * Q_TILE;
+  if (n_tiles > 0) {
+    load_tile_sw128<BR, 128>(qs, q + b * st.q_b + h * st.q_h, qw, Sq,
+                             st.q_s, wt);
+    load_tile_sw128<BR, 128>(dos, dout + b * st.o_b + h * st.o_h, qw, Sq,
+                             st.o_s, wt);
+    load_tile_sw128<BK, NT>(base + DQ_OFF_K, kb, 0, Skv, st.k_s, tid);
+    load_tile_sw128<BK, NT>(base + DQ_OFF_V, vb, 0, Skv, st.v_s, tid);
+  }
+  cp_async_commit();
+  // this thread's two rows' lse (log2 units) and Dvec, kept in registers
+  float l2[2], dvc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qw + row0 + 8 * i;
+    const bool in = qr < Sq;
+    l2[i] = in ? lse[(long long)bh * Sq + qr] * LOG2E : 0.f;
+    dvc[i] = in ? dvec[(long long)bh * Sq + qr] : 0.f;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1
+    if (t + 1 < n_tiles) {
+      const uint32_t nxt = (stage ^ 1) * KV_TILE;
+      load_tile_sw128<BK, NT>(base + DQ_OFF_K + nxt, kb, (t + 1) * BK, Skv,
+                              st.k_s, tid);
+      load_tile_sw128<BK, NT>(base + DQ_OFF_V + nxt, vb, (t + 1) * BK, Skv,
+                              st.v_s, tid);
+    }
+    cp_async_commit();
+    const int k0 = t * BK;
+    if (k0 > wg_last) continue;  // wholly above this warpgroup's diagonal
+    const uint32_t kts = base + DQ_OFF_K + stage * KV_TILE;
+    const uint32_t vts = base + DQ_OFF_V + stage * KV_TILE;
+
+    // S = Q K^T and dP = dO V^T [BR x BK], head_dim in 8 k16 steps, all
+    // operands K-major
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (KV_TILE / 2) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(s, desc_sw128(qs + off, 16, 1024),
+                         desc_sw128(kts + off, 16, 1024), kk);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (KV_TILE / 2) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(dp, desc_sw128(dos + off, 16, 1024),
+                         desc_sw128(vts + off, 16, 1024), kk);
+    }
+    wgmma_commit();
+
+    // P = exp2(scale log2e S - lse log2e) while dP is still on the tensor
+    // cores; masked entries selected to exactly 0 on the tiles that the
+    // diagonal or the end of the keys cuts (a row that sees no key has lse
+    // -1e30, and every tile it meets is cut)
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool cut = k0 + BK > Skv || (causal && k0 + BK - 1 > qw + q_off);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[4 * j + 2 * i + c];
+          const float p = exp2f(fmaf(x, scale_log2, -l2[i]));
+          if (cut) {
+            const int kc = k0 + 8 * j + col0 + c;
+            const int qr = qw + row0 + 8 * i;
+            x = kc < Skv && (!causal || kc <= qr + q_off) ? p : 0.f;
+          } else {
+            x = p;
+          }
+        }
+    // dS = P * (dP - Dvec) in f32
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int x = 4 * j + 2 * i + c;
+          dp[x] = s[x] * (dp[x] - dvc[i]);
+        }
+    // dQ += dS K: dS rounded to bf16 (k's dtype) in registers, K read
+    // MN-major from the tile S read K-major, its kv rows the reduction
+    uint32_t da[BK / 16][4];
+    to_a_operand(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16_rs_bt(
+          acc, da[kk], desc_sw128(kts + kk * 16 * 128, KV_TILE / 2, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(da);
+    fence_regs(acc);
+  }
+  cp_async_wait_all();
+
+  // scale dQ, round to bf16 once, write from registers
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qw + row0 + 8 * i;
+    if (qr >= Sq) continue;
+    __nv_bfloat16* row = dq + (((long long)b * Sq + qr) * Hq + h) * D + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(
+          acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+  }
+}
+
 }  // namespace tc
 
 Strides read_strides(const long long* s) {
@@ -677,6 +860,34 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* dvec, void* dq, int B, int Sq, int Skv,
+                         int Hq, int Hkv, const long long* st, float scale,
+                         int causal, cudaStream_t stream) {
+  auto kern = tc::flash_bwd_dq_tc_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::DQ_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + tc::DQ_BQ - 1) / tc::DQ_BQ, B * Hq);
+  kern<<<grid, tc::NT, tc::DQ_SMEM_BYTES, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, dvec,
+      (__nv_bfloat16*)dq, Sq, Skv, Hq, Hkv, read_strides(st), scale, causal);
+  return cudaGetLastError();
+}
+
+// 0 when q, k, v and dO start 16 bytes aligned and their 12 (batch, seq,
+// head) strides are multiples of 8 elements, as the tensor-core kernels'
+// 16-byte cp.async needs
+int check_tc_alignment(const void* q, const void* k, const void* v,
+                       const void* dout, const long long* strides) {
+  unsigned long long bits = (unsigned long long)q | (unsigned long long)k |
+                            (unsigned long long)v | (unsigned long long)dout;
+  for (int i = 0; i < 12; ++i) bits |= (unsigned long long)strides[i] * 2;
+  return bits % 16 ? (int)cudaErrorMisalignedAddress : 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs alike).
@@ -701,10 +912,23 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64)
     return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dv, dq, B, Sq, Skv,
                                         Hq, Hkv, strides, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dv, dq, B, Sq, Skv,
-                                         Hq, Hkv, strides, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_bwd_dq_tc
+}
+
+// As flash_bwd_dq, on the tensor cores: bf16 (dtype 1) with D = 128 only,
+// q, k, v and dO at 16-byte-aligned addresses with (batch, seq, head)
+// strides in multiples of 8 elements; anything else returns an error.
+extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* dvec, void* dq, int B, int Sq,
+                               int Skv, int Hq, int Hkv, int D,
+                               const long long* strides, float scale,
+                               int causal, int dtype, void* stream) {
+  if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
+  if (int err = check_tc_alignment(q, k, v, dout, strides)) return err;
+  return launch_dq_tc(q, k, v, dout, (const float*)lse, (const float*)dvec,
+                      dq, B, Sq, Skv, Hq, Hkv, strides, scale, causal,
+                      (cudaStream_t)stream);
 }
 
 // As flash_bwd_dq; dK and dV are written [B, Skv, Hkv, D] contiguous, each
@@ -741,10 +965,7 @@ extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                                 const long long* strides, float scale,
                                 int causal, int dtype, void* stream) {
   if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
-  unsigned long long bits = (unsigned long long)q | (unsigned long long)k |
-                            (unsigned long long)v | (unsigned long long)dout;
-  for (int i = 0; i < 12; ++i) bits |= (unsigned long long)strides[i] * 2;
-  if (bits % 16) return (int)cudaErrorMisalignedAddress;
+  if (int err = check_tc_alignment(q, k, v, dout, strides)) return err;
   return launch_dkv_tc(q, k, v, dout, (const float*)lse, (const float*)dvec,
                        dk, dv, B, Sq, Skv, Hq, Hkv, strides, scale, causal,
                        (cudaStream_t)stream);

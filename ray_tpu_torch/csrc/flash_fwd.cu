@@ -14,30 +14,54 @@
 //   in the input dtype and LSE = m + log(max(l, 1e-30)) in f32, which the
 //   backward kernels of a later slice read.
 //
-// What bounds it on the H100: at the 8B prefill shape (B=1, S=512, 32 q
-// heads, 8 kv heads, D=128, causal) the work is ~2.1 GFLOP on ~10.5 MB, so
-// with tensor cores it would be bound by operations at a few microseconds.
-// This first version does the products with f32 FMAs out of shared memory
-// (no wgmma, no TMA): it is bound by shared-memory bandwidth and the f32
-// FMA rate, far from the tensor-core bound. That is deliberate for the
-// first slice: one code path serves bf16 and f32 (the tests compare f32 at
-// 1e-4, which a tf32/bf16 tensor-core path cannot hold), any Sq and Skv
-// (the ragged tile is masked; no 128-multiple rule), head_dim 64 and 128,
-// and strided [B, S, H, D] inputs without a transposed copy. The wgmma/TMA
-// version is work for a later PR.
+// What bounds it on the H100: at the 8B shapes (32 q heads, 8 kv heads,
+// D=128, causal, bf16) the work is 2 causal products, ~2.2 GFLOP on
+// ~10.5 MB at S=512 (prefill) and 35.4 GFLOP on ~42 MB at S=2048
+// (training, 64 launches a step): bound by operations on the tensor cores
+// at S=2048 (~0.035 ms), by the bytes at S=512 (~0.003 ms).
 //
-// Design: one CTA of 256 threads per (64-row q tile, b * Hq). The CTA
-// loops over 64-row kv tiles, skipping tiles wholly above the causal
-// diagonal. Q, K and V tiles are staged in shared memory as f32 (rows are
-// padded by one word so the strided reads of the QK^T loop hit distinct
-// banks); each thread owns a 4x4 block of S and a 4 x D/16 block of O.
-// The online-softmax row statistics live in shared memory, one warp per
-// eight rows. Rows and keys past the sequence ends load as zero and are
-// masked by select, so no NaN or garbage from past the end reaches O.
+// Two kernels:
+//
+// flash_fwd_tc_kernel: bf16 with D = 128 (the serving and training
+// paths), on the tensor cores (wgmma, sm90.cuh). A CTA is two warpgroups
+// on 128 q rows of one (b, q head), each warpgroup on its own 64 rows; its
+// Q tile is loaded once into the 128-byte-swizzled layout and stays. K
+// and V stream through a cp.async double buffer that both warpgroups
+// share: the next kv tile loads while this one's products run, one
+// __syncthreads per tile. Per kv tile a warpgroup computes S = Q K^T
+// (m64n64k16, both operands K-major from shared memory), masks by select
+// only on tiles the causal diagonal or the sequence end cuts, and runs the
+// online softmax in registers in the exp2 domain (row max in-thread, then
+// over the four lanes of a quad; masked entries give exactly 0). P, rounded
+// to bf16 (v's dtype, the TPU kernel's p.astype), becomes the A operand of
+// O += P V (m64n128k16) in registers, V read MN-major from its tile; the
+// row sum uses the f32 P. O stays in 64 f32 registers per thread. A
+// warpgroup skips the tiles wholly above its own diagonal but reaches every
+// barrier. Causal CTAs launch heaviest q block first, so the tail is
+// short. What bounds it now is how much of the tensor cores' time two
+// warpgroups keep busy between the softmax and the per-tile sync, not the
+// bytes.
+//
+// flash_fwd_kernel (f32, and D = 64): the first version, with f32 FMAs
+// out of shared memory (no wgmma, no TMA), bound by shared-memory
+// bandwidth and the f32 FMA rate, far from the tensor-core bound; the
+// tests hold f32 at 1e-4, which a tensor-core path cannot. One CTA of 256
+// threads per (64-row q tile, b * Hq) loops over 64-row kv tiles, skipping
+// tiles wholly above the causal diagonal. Q, K and V tiles are staged in
+// shared memory as f32 (rows are padded by one word so the strided reads
+// of the QK^T loop hit distinct banks); each thread owns a 4x4 block of S
+// and a 4 x D/16 block of O. The online-softmax row statistics live in
+// shared memory, one warp per eight rows.
+//
+// Both take any Sq and Skv and strided [B, S, H, D] inputs without a
+// transposed copy: rows and keys past the sequence ends load as zero and
+// are masked by select, so no NaN or garbage from past the end reaches O.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -239,6 +263,219 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// --- forward on tensor cores: bf16, head_dim 128 ---------------------------
+
+namespace tc {
+
+constexpr int D = 128;
+constexpr int BM = 64;    // q rows per warpgroup: the M of every product
+constexpr int BN = 64;    // kv rows per tile
+constexpr int NWG = 2;    // warpgroups, each on its own BM q rows
+constexpr int NT = 128 * NWG;
+constexpr int BQ = BM * NWG;   // q rows per CTA
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// shared memory, byte offsets from a 1024-byte-aligned base: each
+// warpgroup's Q tile, then two stages each of K and V
+constexpr int TILE = 64 * D * 2;
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + NWG * TILE;
+constexpr int OFF_V = OFF_K + 2 * TILE;
+constexpr int SMEM_BYTES = OFF_V + 2 * TILE + 1024;   // + alignment slack
+
+// Strides in elements, (batch, seq, head) of q, k and v.
+struct Strides {
+  long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
+};
+
+__global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, Strides st,
+    float scale, int causal) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q_off = Skv - Sq;
+  // heaviest causal q block first: block x takes q block n_qb - 1 - x
+  const int n_qb = (Sq + BQ - 1) / BQ;
+  const int q0 = (n_qb - 1 - (int)blockIdx.x) * BQ;
+  const int qw = q0 + BM * wg;   // this warpgroup's first q row
+  // this thread's accumulator rows qw + row0 + 8i and columns
+  // 8j + col0 + {0, 1} (keys in S, head_dim in O)
+  const int row0 = 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+
+  int n_tiles = (Skv + BN - 1) / BN;
+  if (causal) {
+    // the last key any real row of the CTA sees
+    const int last_key = min(q0 + BQ, Sq) - 1 + q_off;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BN + 1);
+  }
+  // the last key this warpgroup's real rows see; -1 when none
+  const int wg_rows = max(min(BM, Sq - qw), 0);
+  const int wg_last = wg_rows == 0 ? -1
+                      : causal     ? min(qw + wg_rows - 1 + q_off, Skv - 1)
+                                   : Skv - 1;
+
+  const __nv_bfloat16* kb = k + b * st.k_b + hk * st.k_h;
+  const __nv_bfloat16* vb = v + b * st.v_b + hk * st.v_h;
+  const uint32_t qs = base + OFF_Q + wg * TILE;
+  if (n_tiles > 0) {
+    load_tile_sw128<BM, 128>(qs, q + b * st.q_b + h * st.q_h, qw, Sq, st.q_s,
+                             wt);
+    load_tile_sw128<BN, NT>(base + OFF_K, kb, 0, Skv, st.k_s, tid);
+    load_tile_sw128<BN, NT>(base + OFF_V, vb, 0, Skv, st.v_s, tid);
+  }
+  cp_async_commit();
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // running max (log2 domain) and this thread's share of the row sum
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1
+    if (t + 1 < n_tiles) {
+      const uint32_t nxt = (stage ^ 1) * TILE;
+      load_tile_sw128<BN, NT>(base + OFF_K + nxt, kb, (t + 1) * BN, Skv,
+                              st.k_s, tid);
+      load_tile_sw128<BN, NT>(base + OFF_V + nxt, vb, (t + 1) * BN, Skv,
+                              st.v_s, tid);
+    }
+    cp_async_commit();
+    const int k0 = t * BN;
+    if (k0 > wg_last) continue;  // wholly above this warpgroup's diagonal
+    const uint32_t kts = base + OFF_K + stage * TILE;
+    const uint32_t vts = base + OFF_V + stage * TILE;
+
+    // S = Q K^T [BM x BN], head_dim in 8 k16 steps (K-major: the step
+    // moves 32 bytes inside a 64-column panel)
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (TILE / 2) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(s, desc_sw128(qs + off, 16, 1024),
+                         desc_sw128(kts + off, 16, 1024), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // to the log2 domain; masked entries NEG_INF, on the tiles that the
+    // diagonal or the end of the keys cuts
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+    const bool cut = k0 + BN > Skv || (causal && k0 + BN - 1 > qw + q_off);
+    if (cut) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kc = k0 + 8 * j + col0 + c;
+            const int qr = qw + row0 + 8 * i;
+            if (kc >= Skv || (causal && kc > qr + q_off))
+              s[4 * j + 2 * i + c] = NEG_INF;
+          }
+    }
+    // online softmax: P = exp2(s - m_new); a row that has seen no key yet
+    // keeps m = NEG_INF and takes 0 as its max, so its P is exactly 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = quad_max(mx);
+      const float corr = exp2f(m[i] - mx);
+      m[i] = mx;
+      const float mu = mx == NEG_INF ? 0.f : mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[4 * j + 2 * i + c];
+          x = exp2f(x - mu);
+          sum += x;
+        }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * i] *= corr;
+        acc[4 * j + 2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers, V read MN-major, its kv
+    // rows the reduction
+    uint32_t pa[BN / 16][4];
+    to_a_operand(s, pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_m64n128k16_rs_bt(acc, pa[kk],
+                             desc_sw128(vts + kk * 16 * 128, TILE / 2, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pa);
+    fence_regs(acc);
+  }
+  cp_async_wait_all();
+
+  // O / l rounded to bf16 once, written from registers; LSE in natural-log
+  // units, NEG_INF on a row that saw no key (its O is 0)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lt = fmaxf(quad_sum(l[i]), 1e-30f);
+    const int qr = qw + row0 + 8 * i;
+    if (qr >= Sq) continue;
+    __nv_bfloat16* row = o + (((long long)b * Sq + qr) * Hq + h) * D + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * i] / lt, acc[4 * j + 2 * i + 1] / lt);
+    if (lane % 4 == 0)
+      lse[(long long)bh * Sq + qr] =
+          (m[i] == NEG_INF ? NEG_INF : m[i] * LN2) + logf(lt);
+  }
+}
+
+}  // namespace tc
+
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                      const long long* s, float scale, int causal,
+                      cudaStream_t stream) {
+  auto kern = tc::flash_fwd_tc_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + tc::BQ - 1) / tc::BQ, B * Hq);
+  kern<<<grid, tc::NT, tc::SMEM_BYTES, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, Sq, Skv, Hq, Hkv,
+      tc::Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]},
+      scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: q, k, v (batch, seq, head)
@@ -258,8 +495,22 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv,
                                      strides, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv,
-                                      strides, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_fwd_tc
+}
+
+// As flash_fwd, on the tensor cores: bf16 (dtype 1) with D = 128 only, q,
+// k and v at 16-byte-aligned addresses with (batch, seq, head) strides in
+// multiples of 8 elements; anything else returns an error.
+extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int Sq, int Skv,
+                            int Hq, int Hkv, int D, const long long* strides,
+                            float scale, int causal, int dtype,
+                            void* stream) {
+  if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
+  unsigned long long bits = (unsigned long long)q | (unsigned long long)k |
+                            (unsigned long long)v;
+  for (int i = 0; i < 9; ++i) bits |= (unsigned long long)strides[i] * 2;
+  if (bits % 16) return (int)cudaErrorMisalignedAddress;
+  return launch_tc(q, k, v, o, (float*)lse, B, Sq, Skv, Hq, Hkv, strides,
+                   scale, causal, (cudaStream_t)stream);
 }

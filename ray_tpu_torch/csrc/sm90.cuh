@@ -135,6 +135,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// an accumulator [64 x 16N] rounded to bf16 as the A operand of N k16 steps
+template <int N>
+__device__ __forceinline__ void to_a_operand(const float (&d)[8 * N],
+                                             uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      a[kk][w] = pack_bf16(d[8 * kk + 2 * w], d[8 * kk + 2 * w + 1]);
+}
+
+// the four lanes of a quad hold one accumulator row between them
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // D[64 x 64] (+)= A B, A and B read from shared memory through their
 // descriptors, both K-major
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,

@@ -3,11 +3,11 @@ kernels behind ``flash_attention`` (forward), ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` (backward) and ``paged_decode_attention``."""
 
 from .attention import (FlashAttention, attention, blockwise_attention,
-                        dkv_route, flash_attention, flash_attention_bwd,
-                        flash_attention_bwd_reference,
+                        dkv_route, dq_route, flash_attention,
+                        flash_attention_bwd, flash_attention_bwd_reference,
                         flash_attention_reference, flash_bwd_dkv,
                         flash_bwd_dkv_reference, flash_bwd_dq,
-                        flash_bwd_dq_reference, naive_attention)
+                        flash_bwd_dq_reference, fwd_route, naive_attention)
 from .norms import rms_norm
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_reference)
@@ -15,9 +15,10 @@ from .rotary import apply_rotary, rope_frequencies
 
 __all__ = [
     "FlashAttention", "apply_rotary", "attention", "blockwise_attention",
-    "dkv_route", "flash_attention", "flash_attention_bwd",
+    "dkv_route", "dq_route", "flash_attention", "flash_attention_bwd",
     "flash_attention_bwd_reference", "flash_attention_reference",
     "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
-    "flash_bwd_dq_reference", "naive_attention", "paged_decode_attention",
+    "flash_bwd_dq_reference", "fwd_route", "naive_attention",
+    "paged_decode_attention",
     "paged_decode_attention_reference", "rms_norm", "rope_frequencies",
 ]

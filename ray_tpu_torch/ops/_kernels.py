@@ -31,8 +31,8 @@ BUILD_DIR = _PKG / "_kernels_build"
 # library -> source; each library's C entry points are in ENTRIES
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_decode": "paged_decode.cu"}
-ENTRIES = {"flash_fwd": ("flash_fwd",),
-           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv",
+ENTRIES = {"flash_fwd": ("flash_fwd", "flash_fwd_tc"),
+           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_tc", "flash_bwd_dkv",
                          "flash_bwd_dkv_tc"),
            "paged_decode": ("paged_decode",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,7 +58,9 @@ _ARGTYPES = {
     "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _F, _I, _P],
 }
-_ARGTYPES["flash_bwd_dkv_tc"] = _ARGTYPES["flash_bwd_dkv"]
+# each tensor-core entry takes its SIMT sibling's arguments
+_ARGTYPES.update({e + "_tc": _ARGTYPES[e]
+                  for e in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

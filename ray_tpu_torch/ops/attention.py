@@ -1,7 +1,9 @@
 """Attention: naive and blockwise plain versions, and flash attention,
 whose forward (``csrc/flash_fwd.cu``) and two backward kernels
 (``csrc/flash_bwd.cu``, dQ and dK/dV) launch on CUDA tensors, while CPU
-tensors run their plain versions.
+tensors run their plain versions. Each of the three has a tensor-core
+kernel for bf16 with head_dim 128 and a SIMT kernel for f32 and head_dim
+64; :func:`_route` picks one.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Layouts: q [B, Sq, Hq, D];
 k/v [B, Skv, Hkv, D]; GQA maps q head h to kv head h // (Hq // Hkv).
@@ -129,13 +131,56 @@ def _check_flash_inputs(q, k, v):
         raise ValueError("flash_attention: q, k, v dtypes differ")
 
 
+def _steps(t):
+    """t's strides with 0 for each dimension of size 1: the kernels never
+    step along one (autograd's dO at B=1 has batch stride 1)."""
+    return tuple(st if n > 1 else 0 for n, st in zip(t.shape, t.stride()))
+
+
+def _route(kernel: str, **tensors) -> str:
+    """Which of ``kernel``'s two CUDA kernels takes these inputs (the
+    first is q): ``"tc"``, the tensor-core kernel, for bf16 with head_dim
+    128 whose tensors start at 16-byte-aligned addresses and have (batch,
+    seq, head) strides in multiples of 8 elements (16 bytes; a dimension
+    of size 1 is never stepped, so its stride does not count); ``"simt"``
+    for every other dtype and head_dim (f32, head_dim 64). Raises for bf16
+    with head_dim 128 that is not so aligned: there is no fallback.
+    Whether the kernels take the dtype and head_dim at all is the
+    wrapper's check."""
+    q = next(iter(tensors.values()))
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 128:
+        return "simt"
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(st % 8 for st in _steps(t)[:3]):
+            raise ValueError(
+                f"{kernel}: bf16 head_dim 128 needs {name} at a "
+                f"16-byte-aligned address with strides in multiples of 8, "
+                f"got offset {t.data_ptr() % 16} and strides {t.stride()}")
+    return "tc"
+
+
+def fwd_route(q, k, v) -> str:
+    """The forward kernel :func:`flash_attention` launches (see
+    :func:`_route`)."""
+    return _route("flash_attention", q=q, k=k, v=v)
+
+
+def _strides(*tensors):
+    """The (batch, seq, head) steps of each tensor, as the kernels' C
+    array of long long."""
+    steps = [st for t in tensors for st in _steps(t)[:3]]
+    return (ctypes.c_longlong * len(steps))(*steps)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None,
                     return_lse: bool = False):
-    """Flash-attention forward. On a CUDA tensor it launches the
-    hand-written kernel, or raises for what the kernel does not take
-    (dtype other than f32/bf16, head_dim other than 64/128, a head_dim
-    stride other than 1); on a CPU tensor it runs
+    """Flash-attention forward. On a CUDA tensor it launches the kernel
+    :func:`fwd_route` picks (the tensor-core kernel for bf16 with head_dim
+    128, the SIMT kernel otherwise, both in ``csrc/flash_fwd.cu``), or
+    raises for what neither takes (dtype other than f32/bf16, head_dim
+    other than 64/128, a head_dim stride other than 1, misaligned bf16
+    with head_dim 128); on a CPU tensor it runs
     :func:`flash_attention_reference`. Returns O, or (O, LSE)."""
     _check_flash_inputs(q, k, v)
     if q.device.type == "cpu":
@@ -155,15 +200,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
         # one grid row per (batch, q head): CUDA caps gridDim.y
         raise ValueError(f"flash_attention kernel takes B * Hq <= 65535, "
                          f"got {b * hq}")
+    route = fwd_route(q, k, v)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-        k.stride(2), v.stride(0), v.stride(1), v.stride(2))
-    fn = _kernels.lib("flash_fwd").flash_fwd
+    strides = _strides(q, k, v)
+    lib = _kernels.lib("flash_fwd")
+    fn = lib.flash_fwd_tc if route == "tc" else lib.flash_fwd
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), b, sq, skv, hq, hkv, d,
              ctypes.cast(strides, ctypes.c_void_p), float(scale),
@@ -171,10 +216,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
              _kernels.stream_ptr(q.device))
     _kernels.check("flash_fwd", err)
     flash_attention.launches += 1
+    if route == "tc":
+        flash_attention.launches_tc += 1
     return (out, lse) if return_lse else out
 
 
+# every launch, and those of the tensor-core kernel alone
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
 
 # --- backward ---------------------------------------------------------------
@@ -247,12 +296,6 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
     return dq, dk, dv
 
 
-def _steps(t):
-    """t's strides with 0 for each dimension of size 1: the kernels never
-    step along one (autograd's dO at B=1 has batch stride 1)."""
-    return tuple(st if n > 1 else 0 for n, st in zip(t.shape, t.stride()))
-
-
 def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
     """Checks what the backward kernels take and returns the shared tail
     of their C arguments, or raises."""
@@ -274,16 +317,22 @@ def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
     if b * hq > 65535:
         raise ValueError(f"flash backward kernels take B * Hq <= 65535, "
                          f"got {b * hq}")
-    strides = (ctypes.c_longlong * 12)(*[
-        st for t in (q, k, v, do) for st in _steps(t)[:3]])
+    strides = _strides(q, k, v, do)
     return (b, sq, k.shape[1], hq, k.shape[2], d,
             ctypes.cast(strides, ctypes.c_void_p), float(scale)), strides
+
+
+def dq_route(q, k, v, do) -> str:
+    """The dQ kernel :func:`flash_bwd_dq` launches (see :func:`_route`)."""
+    return _route("flash_bwd_dq", q=q, k=k, v=v, dO=do)
 
 
 def flash_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
                  scale: Optional[float] = None):
     """dQ of flash attention. On a CUDA tensor it launches the dQ kernel
-    (``csrc/flash_bwd.cu``) or raises for what it does not take; on a CPU
+    that :func:`dq_route` picks (the tensor-core kernel for bf16 with
+    head_dim 128, the SIMT kernel otherwise, both in
+    ``csrc/flash_bwd.cu``) or raises for what neither takes; on a CPU
     tensor it runs :func:`flash_bwd_dq_reference`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, dvec, causal=causal,
@@ -292,39 +341,32 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
         raise ValueError(f"flash_bwd_dq: no kernel for {q.device}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     args, _keep = _bwd_launch_args(q, k, v, do, lse, dvec, scale)
+    route = dq_route(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    err = _kernels.lib("flash_bwd").flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), *args, int(causal),
-        _FLASH_DTYPES[q.dtype], _kernels.stream_ptr(q.device))
+    lib = _kernels.lib("flash_bwd")
+    fn = lib.flash_bwd_dq_tc if route == "tc" else lib.flash_bwd_dq
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), *args,
+             int(causal), _FLASH_DTYPES[q.dtype],
+             _kernels.stream_ptr(q.device))
     _kernels.check("flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
+    if route == "tc":
+        flash_bwd_dq.launches_tc += 1
     return dq
 
 
+# every launch, and those of the tensor-core kernel alone
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_tc = 0
 
 
 def dkv_route(q, k, v, do) -> str:
-    """Which dK/dV kernel takes these inputs: ``"tc"``, the tensor-core
-    kernel, for bf16 with head_dim 128 whose q, k, v and dO start at
-    16-byte-aligned addresses and have (batch, seq, head) strides in
-    multiples of 8 elements (16 bytes; a dimension of size 1 is never
-    stepped, so its stride does not count); ``"simt"`` for every other dtype
-    and head_dim (f32, head_dim 64). Raises for bf16 with head_dim 128 that
-    is not so aligned. Whether the kernels take the dtype and head_dim at
-    all is :func:`_bwd_launch_args`'s check."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] != 128:
-        return "simt"
-    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
-        if t.data_ptr() % 16 or any(st % 8 for st in _steps(t)[:3]):
-            raise ValueError(
-                f"flash_bwd_dkv: bf16 head_dim 128 needs {name} at a "
-                f"16-byte-aligned address with strides in multiples of 8, "
-                f"got offset {t.data_ptr() % 16} and strides {t.stride()}")
-    return "tc"
+    """The dK/dV kernel :func:`flash_bwd_dkv` launches (see
+    :func:`_route`)."""
+    return _route("flash_bwd_dkv", q=q, k=k, v=v, dO=do)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,

@@ -15,11 +15,11 @@ from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import params_to_numpy
 from ray_tpu_torch.models.llama import LlamaConfig, init_params, lm_loss
-from ray_tpu_torch.ops import (attention, flash_attention,
+from ray_tpu_torch.ops import (attention, dq_route, flash_attention,
                                flash_attention_reference, flash_bwd_dkv,
                                flash_bwd_dkv_reference, flash_bwd_dq,
-                               flash_bwd_dq_reference, naive_attention,
-                               paged_decode_attention,
+                               flash_bwd_dq_reference, fwd_route,
+                               naive_attention, paged_decode_attention,
                                paged_decode_attention_reference)
 from ray_tpu_torch.train import adamw, make_train_step
 
@@ -255,6 +255,114 @@ def test_dkv_launches_tc_counts_only_the_tensor_core_kernel_on_card(gen):
         n0 = (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc)
         flash_bwd_dkv(*args)
         assert (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc) == (
+            n0[0] + 1, n0[1] + tc)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal,strided", [
+    (1, 512, 512, 32, 8, True, False),     # Llama-3-8B prefill
+    (1, 2048, 2048, 32, 8, True, False),   # Llama-3-8B training shape
+    (1, 128, 384, 8, 2, True, False),      # Sq < Skv
+    (2, 96, 64, 4, 2, True, False),        # Sq > Skv: rows with no key
+    (2, 100, 100, 4, 2, True, False),      # ragged tiles
+    (1, 320, 320, 8, 2, True, False),      # odd tile count
+    (2, 192, 192, 4, 4, True, False),      # Hq == Hkv
+    (2, 256, 256, 8, 8, False, False),     # non-causal
+    (2, 96, 96, 8, 2, True, True),         # views into a fused qkv
+])
+def test_flash_tensor_core_kernel_matches_plain_version_on_card(
+        gen, B, Sq, Skv, Hq, Hkv, causal, strided):
+    """bf16 with head_dim 128 takes the tensor-core forward: O within
+    2e-2, LSE within 5e-3; a row that sees no key gives O = 0 exactly and
+    LSE -1e30."""
+    bf = torch.bfloat16
+    if strided:
+        qkv = _randn(gen, (B, Sq, Hq + 2 * Hkv, 128), bf)
+        q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    else:
+        q = _randn(gen, (B, Sq, Hq, 128), bf)
+        k, v = (_randn(gen, (B, Skv, Hkv, 128), bf) for _ in range(2))
+    assert fwd_route(q, k, v) == "tc"
+    n0 = (flash_attention.launches, flash_attention.launches_tc)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert (flash_attention.launches, flash_attention.launches_tc) == (
+        n0[0] + 1, n0[1] + 1)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=causal)
+    assert out.dtype == bf and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=5e-3, rtol=5e-3)
+    if causal and Sq > Skv:
+        assert torch.equal(out[:, :Sq - Skv], torch.zeros_like(
+            out[:, :Sq - Skv]))
+        assert (lse[:, :, :Sq - Skv] == -1e30).all()
+
+
+TC_BWD_CASES = [
+    (1, 2048, 2048, 32, 8, True),   # Llama-3-8B training shape
+    (1, 128, 384, 8, 2, True),      # Sq < Skv
+    (2, 100, 100, 4, 2, True),      # ragged tiles
+    (2, 96, 64, 4, 2, True),        # Sq > Skv: rows with no key
+    (2, 256, 256, 8, 8, False),     # non-causal
+    (1, 320, 320, 8, 2, True),      # odd tile count
+    (2, 192, 192, 4, 4, True),      # Hq == Hkv
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal", TC_BWD_CASES)
+def test_dq_tensor_core_kernel_matches_plain_version_on_card(
+        gen, B, Sq, Skv, Hq, Hkv, causal):
+    """bf16 with head_dim 128 takes the tensor-core dQ kernel: within the
+    reference's relative 2e-2 (max error over the largest magnitude);
+    rows that see no key give dQ = 0 exactly."""
+    args = _bwd_args(gen, B, Sq, Skv, Hq, Hkv, 128, causal, torch.bfloat16)
+    assert dq_route(*args[:4]) == "tc"
+    n0 = (flash_bwd_dq.launches, flash_bwd_dq.launches_tc)
+    got = flash_bwd_dq(*args, causal=causal)
+    assert (flash_bwd_dq.launches, flash_bwd_dq.launches_tc) == (
+        n0[0] + 1, n0[1] + 1)
+    want = flash_bwd_dq_reference(*args, causal=causal)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err < 2e-2, err
+    if causal and Sq > Skv:
+        assert got[:, :Sq - Skv].abs().max() == 0
+
+
+def test_dq_tensor_core_kernel_takes_autograds_do_at_b1_on_card(gen):
+    """At B=1 autograd may hand dO with batch stride 1: the dQ kernel
+    never steps along that dimension and gives the same bits."""
+    q, k, v, do, lse, dvec = _bwd_args(gen, 1, 256, 256, 8, 2, 128, True,
+                                       torch.bfloat16)
+    odd = do.as_strided(do.shape, (1,) + do.stride()[1:])
+    assert torch.equal(flash_bwd_dq(q, k, v, odd, lse, dvec),
+                       flash_bwd_dq(q, k, v, do, lse, dvec))
+
+
+def test_fwd_and_dq_tensor_core_kernels_are_deterministic_on_card(gen):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = _bwd_args(gen, 1, 512, 512, 32, 8, 128, True, torch.bfloat16)
+    q, k, v = args[:3]
+    first = flash_attention(q, k, v, return_lse=True)
+    for a, b in zip(first, flash_attention(q, k, v, return_lse=True)):
+        assert torch.equal(a, b)
+    assert torch.equal(flash_bwd_dq(*args), flash_bwd_dq(*args))
+
+
+def test_fwd_and_dq_launches_tc_count_only_the_tensor_core_kernels_on_card(
+        gen):
+    """bf16 with head_dim 128 takes the tensor-core kernels; f32 and
+    head_dim 64 stay on the SIMT kernels."""
+    cases = [((1, 64, 64, 4, 2, 128, True, torch.bfloat16), 1),
+             ((1, 64, 64, 4, 2, 128, True, torch.float32), 0),
+             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 0)]
+    for shape, tc in cases:
+        n0 = (flash_attention.launches, flash_attention.launches_tc)
+        args = _bwd_args(gen, *shape)       # one forward launch
+        assert (flash_attention.launches, flash_attention.launches_tc) == (
+            n0[0] + 1, n0[1] + tc)
+        n0 = (flash_bwd_dq.launches, flash_bwd_dq.launches_tc)
+        flash_bwd_dq(*args)
+        assert (flash_bwd_dq.launches, flash_bwd_dq.launches_tc) == (
             n0[0] + 1, n0[1] + tc)
 
 

@@ -25,11 +25,11 @@ from ray_tpu.ops.paged_attention import (
 
 from ray_tpu_torch.ops import (FlashAttention, _kernels, apply_rotary,
                                attention, blockwise_attention, dkv_route,
-                               flash_attention,
+                               dq_route, flash_attention,
                                flash_attention_bwd,
                                flash_attention_bwd_reference,
                                flash_attention_reference, flash_bwd_dkv,
-                               flash_bwd_dq, naive_attention,
+                               flash_bwd_dq, fwd_route, naive_attention,
                                paged_decode_attention,
                                paged_decode_attention_reference, rms_norm,
                                rope_frequencies)
@@ -407,7 +407,7 @@ def _view(shape, dtype, *, offset=0, width=None):
     return flat[offset:].view(b, s, h, width)[..., :d]
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", [
+ROUTE_CASES = [
     (torch.bfloat16, 128, 0, None, "tc"),     # the training path
     (torch.bfloat16, 128, 0, 136, "tc"),      # rows 272 bytes apart
     (torch.float32, 128, 0, None, "simt"),
@@ -415,7 +415,10 @@ def _view(shape, dtype, *, offset=0, width=None):
     (torch.float32, 64, 1, None, "simt"),     # SIMT reads any alignment
     (torch.bfloat16, 128, 1, None, None),     # base 2 bytes off: raises
     (torch.bfloat16, 128, 0, 130, None),      # rows 260 bytes apart: raises
-])
+]
+
+
+@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
 def test_dkv_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_bwd_dkv on a CUDA tensor, on CPU tensors."""
@@ -441,6 +444,74 @@ def test_dkv_route_ignores_the_stride_of_a_size_one_dimension():
     two = buf.as_strided((2, 8, 4, 128), (1, 512, 128, 1))
     with pytest.raises(ValueError, match="16-byte"):
         dkv_route(two, k, k, two)
+
+
+@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
+def test_fwd_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
+        dtype, d, offset, width, want):
+    """The rule behind flash_attention on a CUDA tensor, on CPU tensors:
+    a misaligned q, k or v raises, naming the wrapper."""
+    q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
+    k = torch.zeros((1, 8, 2, d), dtype=dtype)
+    if want is None:
+        with pytest.raises(ValueError, match="flash_attention: .*16-byte"):
+            fwd_route(q, k, k)
+        with pytest.raises(ValueError, match="needs v at a 16-byte"):
+            fwd_route(k, k, q)
+    else:
+        assert fwd_route(q, k, k) == want
+        assert fwd_route(k, q, q) == want
+
+
+@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
+def test_dq_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
+        dtype, d, offset, width, want):
+    """The rule behind flash_bwd_dq on a CUDA tensor, on CPU tensors: a
+    misaligned q, k, v or dO raises, naming the wrapper."""
+    q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
+    k = torch.zeros((1, 8, 2, d), dtype=dtype)
+    if want is None:
+        with pytest.raises(ValueError, match="flash_bwd_dq: .*16-byte"):
+            dq_route(q, k, k, q)
+        with pytest.raises(ValueError, match="needs dO at a 16-byte"):
+            dq_route(k, k, k, q)
+    else:
+        assert dq_route(q, k, k, q) == want
+        assert dq_route(k, q, q, k) == want
+
+
+@pytest.mark.parametrize("route", [fwd_route, dq_route])
+def test_fwd_and_dq_routes_ignore_the_stride_of_a_size_one_dimension(route):
+    buf = torch.zeros(8 * 4 * 128 + 1, dtype=torch.bfloat16)
+    x = buf.as_strided((1, 8, 4, 128), (1, 512, 128, 1))
+    k = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    two = buf.as_strided((2, 8, 4, 128), (1, 512, 128, 1))
+    if route is fwd_route:
+        assert route(x, k, k) == "tc"
+        with pytest.raises(ValueError, match="16-byte"):
+            route(two, k, k)
+    else:
+        assert route(x, k, k, x) == "tc"
+        with pytest.raises(ValueError, match="16-byte"):
+            route(two, k, k, two)
+
+
+def test_the_three_wrappers_share_one_route_rule():
+    """fwd_route, dq_route and dkv_route are one helper: the same answer,
+    or the same refusal, for every case, each naming its own wrapper."""
+    for dtype, d, offset, width, want in ROUTE_CASES:
+        q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
+        k = torch.zeros((1, 8, 2, d), dtype=dtype)
+        answers = []
+        for name, route, args in (("flash_attention", fwd_route, (q, k, k)),
+                                  ("flash_bwd_dq", dq_route, (q, k, k, q)),
+                                  ("flash_bwd_dkv", dkv_route, (q, k, k, q))):
+            try:
+                answers.append(route(*args))
+            except ValueError as e:
+                assert str(e).startswith(f"{name}: bf16 head_dim 128 needs q")
+                answers.append(None)
+        assert answers == [want] * 3
 
 
 def test_kernel_library_name_follows_sources_headers_and_flags(
