@@ -13,6 +13,9 @@ Phases, one JSON line each on stdout:
                chunked-prefill engine serving one 511-token request; checks
                the kernels' launch counts, and paged vs gather decode on one
                cache state.
+     engine_8k - the same weights at 8k context (bench.py's long-context
+               family): four 7,650-token prompts, two timed 32-step bursts,
+               every decode step through the paged kernel.
   5. train   - Llama-3-8B (full width and depth, bf16, seed 7, remat
                "full") trained by make_train_step with AdamW at B=1,
                S=2048: one warm-up step, then 3 timed steps on one batch;
@@ -23,8 +26,8 @@ Phases, one JSON line each on stdout:
   7. timing  - kernel, plain-version and library times, and the bound.
 A comma-separated list of phases runs only those and prints no result;
 `profile` and `profile_train` (not in the default run) trace, with
-torch.profiler, one 511-token prefill and one decode burst of the 8B
-engine, and one 8B training step:
+torch.profiler, one 511-token prefill and a decode burst at B=8 and at
+8k context of the 8B engine, and one 8B training step:
 
     python3 chip_smoke.py build,profile,profile_train
 The line before the last is the `kernels` line; the last line is
@@ -88,11 +91,15 @@ def _ptxas(log):
             name = line.split("'")[1]
             # the kernel's name and template arguments out of the mangling
             m = re.search(r"\d+((?:flash|paged)_[a-z_]+?_kernel)"
-                          r"(?:I(f|13__nv_bfloat16)Li(\d+)E)?", name)
+                          r"(I(?:f|13__nv_bfloat16)?(?:Li\d+E)+)?", name)
             if m:
-                name = m.group(1) + (
-                    f"<{'f32' if m.group(2) == 'f' else 'bf16'},"
-                    f"{m.group(3)}>" if m.group(2) else "")
+                targs = m.group(2) or ""
+                parts = re.findall(r"Li(\d+)E", targs)
+                if targs.startswith(("If", "I13")):
+                    parts.insert(0, "f32" if targs.startswith("If")
+                                 else "bf16")
+                name = m.group(1) + (f"<{','.join(parts)}>" if parts
+                                     else "")
             out[name] = {}
         elif name and "spill" in words:
             # "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
@@ -126,6 +133,13 @@ def phase_build():
             got = kernels.get(tc, {})
             require(got.get("spill_bytes") == 0,
                     f"{tc} spills or is missing: {got}")
+        paged = {k: v for k, v in kernels.items()
+                 if k.startswith("paged_decode_")}
+        # 12 split kernels (<f32/bf16, hd 64/128, rep up to 4/8/16>) and 4
+        # combine kernels
+        require(len(paged) == 16 and all(
+            v.get("spill_bytes") == 0 for v in paged.values()),
+            f"a paged decode kernel spills or is missing: {paged}")
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -162,6 +176,10 @@ BWD_CASES = [
 
 # B, kvh, rep, hd, page, n_pages, K
 PAGED_8B = (8, 8, 4, 128, 64, 16, 8)
+# the 8k-context family of bench.py (_bench_long_context): B=4, 7,650
+# cached positions in 128-page tables, a 32-step burst tail
+PAGED_8K = (4, 8, 4, 128, 64, 128, 32)
+CTX_8K = 7650
 
 TRAIN_B, TRAIN_S = 1, 2048     # the 8B training batch
 
@@ -199,6 +217,73 @@ def _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, dtype, seed=0):
     new_len = torch.randint(1, K + 1, (B,), generator=g,
                             device="cuda").to(torch.int32)
     return [q, ck, cv, nk, nv, bt, ctx, new_len]
+
+
+def _splits(args):
+    """(pages_per_split, n_splits) the wrapper takes for these inputs."""
+    from ray_tpu_torch.ops.paged_attention import _num_sms, paged_decode_splits
+
+    B, kvh = args[0].shape[:2]
+    return paged_decode_splits(B, kvh, args[5].shape[1],
+                               _num_sms(args[0].device.index))
+
+
+# bf16 paged decode computes in f32, its weights P included, and rounds
+# once: within half a bf16 ulp (2**-8 relative, + 1e-5 for the f32 sums'
+# order) of the plain version run on f32 copies of its inputs
+BF16_ROUNDING = 2 ** -8
+
+
+def _paged_cases(torch):
+    """(name, args, tol): the 8B decode shape, the 8k shape, and edges of
+    the split rule, the dump page and empty rows; tol is relative to the
+    f32 result for bf16 (BF16_ROUNDING), atol = rtol for f32."""
+    i32 = dict(device="cuda", dtype=torch.int32)
+    cases = []
+    B, kvh, rep, hd, page, n_pages, K = PAGED_8B
+    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16")
+    cases.append(("8b_decode", args, BF16_ROUNDING))
+    args = _paged_inputs(torch, *PAGED_8K, "bf16", seed=4)
+    args[6] = torch.full((PAGED_8K[0],), CTX_8K, **i32)
+    args[7] = torch.full((PAGED_8K[0],), PAGED_8K[-1], **i32)
+    cases.append(("8k_context", args, BF16_ROUNDING))
+    # contexts one short of, at and one past a split boundary; a tail-only
+    # row; the whole table; a row that ends inside the first page
+    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16",
+                         seed=5)
+    span = _splits(args)[0] * page
+    args[6] = torch.tensor([span - 1, span, span + 1, 2 * span - 1, 0,
+                            n_pages * page, 1, 2 * span + 1], **i32)
+    args[7] = torch.tensor([1, K, 3, 1, K, 2, 1, K], **i32)
+    cases.append(("split_edges", args, BF16_ROUNDING))
+    # NaN on the dump page, tables padded with 0, ctx inside real pages
+    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16",
+                         seed=1)
+    args[1][0] = float("nan")
+    args[2][0] = float("nan")
+    bt = args[5].clone()
+    bt[:, 3:] = 0
+    args[5] = bt
+    args[6] = torch.randint(0, 3 * page + 1, (B,), **i32)
+    args[6][0] = 3 * page
+    cases.append(("nan_dump_page", args, BF16_ROUNDING))
+    # rows with no valid position give exactly 0
+    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16",
+                         seed=2)
+    args[6][:3] = 0
+    args[7][:2] = 0
+    cases.append(("empty_rows", args, BF16_ROUNDING))
+    args = _paged_inputs(torch, 3, 1, 8, 64, 16, 4, 4, "f32", seed=3)
+    cases.append(("f32_mqa_d64", args, 1e-4))
+    # f32 at split edges: single-page splits over a 6-page table
+    args = _paged_inputs(torch, 4, 2, 3, 128, 16, 6, 4, "f32", seed=6)
+    span = _splits(args)[0] * 16
+    args[6] = torch.tensor([span - 1, span + 1, 0, 0], **i32)
+    args[7] = torch.tensor([2, 1, 3, 0], **i32)
+    cases.append(("f32_split_edges", args, 1e-4))
+    args = _paged_inputs(torch, 2, 2, 16, 64, 32, 5, 4, "bf16", seed=7)
+    cases.append(("bf16_rep16_d64", args, BF16_ROUNDING))
+    return cases
 
 
 def _bwd_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, causal, seed=0):
@@ -270,45 +355,36 @@ def phase_parity(torch):
         require(ok, f"flash_fwd parity failed: {name}")
         results.setdefault("flash_fwd", []).append(max(err, lse_err))
 
-    B, kvh, rep, hd, page, n_pages, K = PAGED_8B
-    cases = []
-    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16")
-    cases.append(("8b_decode", args, 2e-2))
-    # NaN on the dump page, tables padded with 0, ctx inside real pages
-    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16",
-                         seed=1)
-    args[1][0] = float("nan")
-    args[2][0] = float("nan")
-    bt = args[5].clone()
-    bt[:, 3:] = 0
-    args[5] = bt
-    args[6] = torch.randint(0, 3 * page + 1, (B,), device="cuda",
-                            dtype=torch.int32)
-    args[6][0] = 3 * page
-    cases.append(("nan_dump_page", args, 2e-2))
-    # rows with no valid position give 0
-    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16",
-                         seed=2)
-    args[6][:3] = 0
-    args[7][:2] = 0
-    cases.append(("empty_rows", args, 2e-2))
-    args = _paged_inputs(torch, 3, 1, 8, 64, 16, 4, 4, "f32", seed=3)
-    cases.append(("f32_mqa_d64", args, 1e-4))
-    for name, args, tol in cases:
+    for name, args, tol in _paged_cases(torch):
         out = paged_decode_attention(*args)
+        again = paged_decode_attention(*args)
         torch.cuda.synchronize()
+        # no atomics: a second launch gives the same bits
+        deterministic = torch.equal(out, again)
         ref = paged_decode_attention_reference(*args)
         err = _max_err(out, ref)
-        ok = (_close(torch, out, ref, tol)
+        if out.dtype == torch.float32:
+            close, err_f32 = _close(torch, out, ref, tol), err
+        else:
+            ref = paged_decode_attention_reference(
+                *[a.float() for a in args[:5]], *args[5:])
+            close = bool(torch.allclose(out.float(), ref, atol=1e-5,
+                                        rtol=tol))
+            err_f32 = _max_err(out, ref)
+        ok = (close and deterministic
               and bool(torch.isfinite(out.float()).all()))
-        if name == "empty_rows":
-            empty = (args[6] + args[7]) == 0
-            ok = ok and bool((out[empty] == 0).all())
+        empty = (args[6] + args[7]) == 0
+        empty_zero = bool((out[empty] == 0).all()) if empty.any() else None
+        ok = ok and empty_zero is not False
         emit({"phase": "parity", "kernel": "paged_decode", "case": name,
               "shape": list(args[0].shape) + [args[1].shape[1],
                                                args[5].shape[1],
                                                args[3].shape[1]],
-              "max_abs_err": err, "tol": tol, "ok": ok})
+              "dtype": str(args[0].dtype).split(".")[1],
+              "splits": list(_splits(args)), "max_abs_err": err,
+              "max_abs_err_vs_f32": err_f32, "tol": tol,
+              "empty_rows_zero": empty_zero,
+              "deterministic": deterministic, "ok": ok})
         require(ok, f"paged_decode parity failed: {name}")
         results.setdefault("paged_decode", []).append(err)
 
@@ -372,17 +448,32 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
 
 # --- phase 4 ---------------------------------------------------------------
 
+_SERVING = {}
+
+
+def _serving_params(torch):
+    """Llama-3-8B (full width and depth, bf16, random weights from seed 7)
+    on the card, made once for both engine phases; and the seconds it
+    took."""
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params
+
+    if "params" not in _SERVING:
+        t0 = time.perf_counter()
+        _SERVING["params"] = init_params(LLAMA_CONFIGS["8b"], seed=7,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        _SERVING["init_s"] = time.perf_counter() - t0
+    return _SERVING["params"], _SERVING["init_s"]
+
+
 def phase_engine(torch):
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
-    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
     from ray_tpu_torch.ops.attention import flash_attention
     from ray_tpu_torch.ops.paged_attention import paged_decode_attention
 
     cfg = LLAMA_CONFIGS["8b"]
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=7, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s = _serving_params(torch)
     ecfg = EngineConfig(max_num_seqs=8, page_size=64, max_seq_len=1024,
                         num_pages=1 + 8 * 16, decode_burst=8)
     engine = LLMEngine(params, cfg, ecfg, device="cuda")
@@ -485,6 +576,77 @@ def phase_engine(torch):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del engine, eng2
     return launches
+
+
+def _engine_8k(torch, params, cfg):
+    """An engine after bench.py's 8k family with four 7,650-token greedy
+    requests prefilled and one warm-up burst taken; and their ids."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+
+    B, page = 4, 64
+    engine = LLMEngine(params, cfg, EngineConfig(
+        max_num_seqs=B, page_size=page, num_pages=1 + B * (8192 // page),
+        max_seq_len=8192, decode_burst=32), device="cuda")
+    g = torch.Generator().manual_seed(1)
+    sp = SamplingParams(temperature=0.0, max_tokens=512)
+    ids = [engine.add_request(
+        torch.randint(1, cfg.vocab, (CTX_8K,), generator=g).tolist(), sp)
+        for _ in range(B)]
+    while sum(s is not None and s.ctx_len > 0 for s in engine.slots) < B:
+        engine.step(skip_decode=True)
+    engine.step()                           # warm-up burst
+    torch.cuda.synchronize()
+    return engine, ids
+
+
+def phase_engine_8k(torch, card):
+    """Long-context serving, after bench.py's 8k family
+    (_bench_long_context): the 8B model with max_seq_len 8192, 64-token
+    pages for 4 sequences of 8192, 4 slots and 32-step bursts, four greedy
+    7,650-token prompts; after one warm-up burst, two timed bursts. Every
+    decode step must take the paged kernel, L launches a step."""
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    cfg = LLAMA_CONFIGS["8b"]
+    params, _ = _serving_params(torch)
+    torch.cuda.reset_peak_memory_stats()
+    B, burst = 4, 32
+    engine, ids = _engine_8k(torch, params, cfg)
+
+    paged_decode_attention.launches = 0
+    before = engine.stats()
+    tokens_before = sum(len(engine.requests[i].output) for i in ids)
+    burst_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        burst_ms.append((time.perf_counter() - t0) * 1e3)
+    tokens = sum(len(engine.requests[i].output) for i in ids) - tokens_before
+    after = engine.stats()
+    steps = after["decode_steps"] - before["decode_steps"]
+    paged = after["paged_decode_steps"] - before["paged_decode_steps"]
+    L = cfg.n_layers
+    emit({"phase": "engine_8k", "model": "llama3-8b", "dtype": "bf16",
+          "batch": B, "ctx": CTX_8K, "decode_burst": burst,
+          "decode_tok_s": tokens / (sum(burst_ms) / 1e3),
+          "decode_tokens": tokens, "burst_ms": burst_ms,
+          "decode_steps": steps, "paged_decode_steps": paged,
+          "paged_decode_launches": paged_decode_attention.launches,
+          "expected_paged": L * steps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": card})
+    require(tokens == B * 2 * burst, f"expected {B * 2 * burst} tokens, "
+            f"got {tokens}")
+    require(paged == steps > 0, "a decode step did not take the paged kernel")
+    require(paged_decode_attention.launches == L * steps,
+            "paged_decode launches differ from n_layers per decode step")
+    for i in ids:
+        require(all(0 <= t < cfg.vocab for t in engine.requests[i].output),
+                f"request {i} produced out-of-range tokens")
+    del engine
+    return paged_decode_attention.launches
 
 
 def _paged_vs_gather(torch, engine, params, cfg, prompts):
@@ -765,6 +927,21 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def _host_us(torch, fn, n=50):
+    """Host microseconds per call of ``fn``, enqueued behind a ~20 ms spin
+    on the device: kernel launches return at once, so n calls take far
+    less than the spin unless a call waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host_us
+
+
 def _clocks():
     """The card's SM clock, power draw and throttle reasons now."""
     smi = subprocess.run(
@@ -773,6 +950,45 @@ def _clocks():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     return smi.stdout.strip()
+
+
+def _paged_work(args):
+    """Bytes and FLOPs of one paged decode call on these inputs: every
+    valid K and V row read once, q read and out written once, the tables
+    and lengths; 4 hd FLOPs per (query head, valid position)."""
+    q, ck, cv, nk, nv, bt, ctx, new_len = args
+    B, kvh, rep, hd = q.shape
+    valid = int(ctx.clamp(0, bt.shape[1] * ck.shape[1]).sum()) + int(
+        new_len.clamp(0, nk.shape[1]).sum())
+    nbytes = (2 * valid * kvh * hd * ck.element_size()
+              + 2 * q.numel() * q.element_size() + bt.numel() * 4 + 2 * B * 4)
+    return nbytes, 4 * hd * rep * kvh * valid
+
+
+def _paged_library(torch, args):
+    """The yardstick: one gather of the whole tables (index_select), then
+    SDPA with the mask over old and new positions."""
+    import torch.nn.functional as F
+
+    q, ck, cv, nk, nv, bt, ctx, new_len = args
+    B, kvh, rep, hd = q.shape
+    K = nk.shape[1]
+    Sold = bt.shape[1] * ck.shape[1]
+    pos = torch.arange(Sold + K, device="cuda")
+    mask = torch.cat([pos[None, :Sold] < ctx[:, None],
+                      pos[None, :K] < new_len[:, None]], dim=1)[:, None, None]
+    qs = q.reshape(B, kvh * rep, 1, hd)
+
+    def library():
+        idx = bt.reshape(-1).long()
+        ok = ck.index_select(0, idx).reshape(B, Sold, kvh, hd)
+        ov = cv.index_select(0, idx).reshape(B, Sold, kvh, hd)
+        kk = torch.cat([ok, nk], dim=1).transpose(1, 2)
+        vv = torch.cat([ov, nv], dim=1).transpose(1, 2)
+        return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    return library
 
 
 def phase_timing(torch, launches, max_err):
@@ -806,37 +1022,40 @@ def phase_timing(torch, launches, max_err):
                      nbytes, flops, lib))
 
     # paged decode at the 8B decode shape, full 16-page tables
-    B, kvh, rep, hd, page, n_pages, K = PAGED_8B
-    args = _paged_inputs(torch, B, kvh, rep, hd, page, n_pages, K, "bf16")
+    args = _paged_inputs(torch, *PAGED_8B, "bf16")
     ms = _time_ms(torch, lambda: paged_decode_attention(*args))
     plain = _time_ms(torch, lambda: paged_decode_attention_reference(*args),
                      iters=5)
-    q, ck, cv, nk, nv, bt, ctx, new_len = args
-    Sold = n_pages * page
-    pos = torch.arange(Sold + K, device="cuda")
-    mask = torch.cat([pos[None, :Sold] < ctx[:, None],
-                      pos[None, :K] < new_len[:, None]], dim=1)[:, None, None]
-    qs = q.reshape(B, kvh * rep, 1, hd)
-
-    def library():
-        idx = bt.reshape(-1).long()
-        ok = ck.index_select(0, idx).reshape(B, Sold, kvh, hd)
-        ov = cv.index_select(0, idx).reshape(B, Sold, kvh, hd)
-        kk = torch.cat([ok, nk], dim=1).transpose(1, 2)
-        vv = torch.cat([ov, nv], dim=1).transpose(1, 2)
-        return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask,
-                                              enable_gqa=True)
-
-    lib = _time_ms(torch, library)
-    valid = int(ctx.sum()) + int(new_len.sum())
-    flops = 4 * hd * rep * kvh * valid
-    nbytes = (2 * valid * kvh * hd * 2 + 2 * q.numel() * 2
-              + bt.numel() * 4 + 2 * B * 4)
+    lib = _time_ms(torch, _paged_library(torch, args))
     rows.append(_row("paged_decode", "ray_tpu_torch/csrc/paged_decode.cu",
                      "ray_tpu/ops/paged_attention.py:51",
                      launches.get("paged_decode", 0),
                      max_err.get("paged_decode"), ms,
-                     plain, nbytes, flops, lib))
+                     plain, *_paged_work(args), lib))
+    # the wrappers' host time per call with the device busy: a call that
+    # waited for the device would show the spin queued ahead of it
+    emit({"phase": "timing_extra", "name": "host_us_per_call",
+          "paged_decode": _host_us(torch,
+                                   lambda: paged_decode_attention(*args)),
+          "flash_fwd": _host_us(torch, lambda: flash_attention(
+              q, k, v, causal=True))})
+    # and at the 8k shape: every row 7,650 cached positions and 32 new
+    args = _paged_inputs(torch, *PAGED_8K, "bf16")
+    args[6].fill_(CTX_8K)
+    args[7].fill_(PAGED_8K[-1])
+    ms = _time_ms(torch, lambda: paged_decode_attention(*args))
+    plain = _time_ms(torch, lambda: paged_decode_attention_reference(*args),
+                     iters=5)
+    lib = _time_ms(torch, _paged_library(torch, args))
+    r = _row("paged_decode", "", "", 0, None, ms, plain, *_paged_work(args),
+             lib)
+    emit({"phase": "timing_extra", "name": "paged_decode",
+          "shape": f"8k context, B=4, kvh=8, rep=4, hd=128, page 64, "
+                   f"128-page tables, ctx {CTX_8K}, K=32",
+          **{k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "bytes")},
+          "share_of_bound": r["bound_ms"] / ms,
+          "gb_s": r["bytes"] / ms / 1e6})
     flash_attention.launches, paged_decode_attention.launches = saved
     rows += _timing_bwd(torch, launches, max_err)
     # "sm MHz, max sm MHz, power draw, temperature, throttle reasons"
@@ -947,9 +1166,10 @@ def _profile_window(torch, fn):
 
 
 def phase_profile(torch):
-    """Where the serving time goes at the engine phase's shapes: one
-    whole-prompt prefill of 511 tokens on an idle engine, then one decode
-    burst at B=8, each traced once after a warm-up."""
+    """Where the serving time goes at the engine phases' shapes: one
+    whole-prompt prefill of 511 tokens on an idle engine, one decode burst
+    at B=8, and one 32-step burst at 8k context (B=4), each traced once
+    after a warm-up."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params
 
@@ -980,6 +1200,11 @@ def phase_profile(torch):
     decode, _ = _profile_window(torch, engine.step)
     emit({"phase": "profile", "window": "one decode burst, K=8, B=8",
           **decode})
+    del engine
+    engine, _ = _engine_8k(torch, params, cfg)
+    decode, _ = _profile_window(torch, engine.step)
+    emit({"phase": "profile", "window": "one decode burst at 8k context, "
+          "K=32, B=4", **decode})
 
 
 GEMM_WORDS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "wgmma")
@@ -1056,11 +1281,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    all_phases = ["build", "parity", "engine", "train", "reference",
-                  "timing"]
+    all_phases = ["build", "parity", "engine", "engine_8k", "train",
+                  "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
-        phase_device(torch)
+        card = phase_device(torch)
         if "build" in phases:
             phase_build()
         max_err = phase_parity(torch) if "parity" in phases else {}
@@ -1069,6 +1294,12 @@ def main() -> int:
         if "engine" in phases:
             launches = phase_engine(torch)
             torch.cuda.empty_cache()
+        if "engine_8k" in phases:
+            # paged_decode runs on both serving paths: its row counts both
+            launches["paged_decode"] = (launches.get("paged_decode", 0)
+                                        + phase_engine_8k(torch, card))
+        _SERVING.clear()
+        torch.cuda.empty_cache()
         if "train" in phases:
             # flash_fwd runs on both paths: its row counts both runs
             for name, n in phase_train(torch).items():

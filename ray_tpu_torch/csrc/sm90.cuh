@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks for the port's tensor-core kernels, plain
-// CUDA and inline PTX (no CUTLASS, no PyTorch headers):
+// Hopper (sm_90a) building blocks for the port's kernels, plain CUDA and
+// inline PTX (no CUTLASS, no PyTorch headers):
 //   - cp.async copies global -> shared, 16 or 4 bytes, zero-filling what
-//     lies past the source's valid bytes;
+//     lies past the source's valid bytes, and waits on their groups;
 //   - the 128-byte-swizzled layout of a [ROWS x 128] bf16 tile that wgmma
 //     reads: two panels of 64 columns, each ROWS rows of 128 bytes, the
 //     16-byte chunk c of row r stored at chunk c ^ (r % 8) (the layout TMA
@@ -53,6 +53,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most N committed cp.async groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // shared-memory writes of the generic proxy (cp.async, st.shared) made

@@ -10,7 +10,8 @@ from .attention import (FlashAttention, attention, blockwise_attention,
                         flash_bwd_dq_reference, fwd_route, naive_attention)
 from .norms import rms_norm
 from .paged_attention import (paged_decode_attention,
-                              paged_decode_attention_reference)
+                              paged_decode_attention_reference,
+                              paged_decode_splits)
 from .rotary import apply_rotary, rope_frequencies
 
 __all__ = [
@@ -19,6 +20,6 @@ __all__ = [
     "flash_attention_bwd_reference", "flash_attention_reference",
     "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
     "flash_bwd_dq_reference", "fwd_route", "naive_attention",
-    "paged_decode_attention",
-    "paged_decode_attention_reference", "rms_norm", "rope_frequencies",
+    "paged_decode_attention", "paged_decode_attention_reference",
+    "paged_decode_splits", "rms_norm", "rope_frequencies",
 ]

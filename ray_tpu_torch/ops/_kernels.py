@@ -53,10 +53,11 @@ _ARGTYPES = {
     # as flash_bwd_dq with dk, dv in place of dq
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P, _F, _I, _I, _P],
-    # q, ck, cv, nk, nv, bt, ctx_len, new_len, out, B, kvh, rep, hd, P,
-    # page_size, n_pages, K, scale, dtype, stream
-    "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _F, _I, _P],
+    # q, ck, cv, nk, nv, bt, ctx_len, new_len, part, out, B, kvh, rep, hd,
+    # P, page_size, n_pages, K, pages_per_split, n_splits, scale, dtype,
+    # stream
+    "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 # each tensor-core entry takes its SIMT sibling's arguments
 _ARGTYPES.update({e + "_tc": _ARGTYPES[e]

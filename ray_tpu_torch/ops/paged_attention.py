@@ -1,6 +1,7 @@
 """Paged decode attention: one query per head over the paged KV cache
 plus the in-flight burst tail. On a CUDA tensor it launches the
-hand-written kernel (``csrc/paged_decode.cu``); on a CPU tensor it runs
+hand-written kernel (``csrc/paged_decode.cu``, split-KV: the pages of a
+sequence are split across CTAs, then merged); on a CPU tensor it runs
 :func:`paged_decode_attention_reference`.
 
 Counterpart of ``ray_tpu/ops/paged_attention.py``. Layout contract
@@ -14,11 +15,18 @@ Counterpart of ``ray_tpu/ops/paged_attention.py``. Layout contract
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _kernels
 
 _NEG_INF = -1e30
+# CTAs the split rule aims for per SM, and the most pages one split takes
+# (the kernel keeps a split's slice of the block table in shared memory)
+_CTAS_PER_SM = 2
+MAX_PAGES_PER_SPLIT = 512
+MAX_SPLITS = 1536
 
 
 def paged_decode_attention_reference(q, cache_k, cache_v, new_k, new_v,
@@ -52,6 +60,25 @@ def paged_decode_attention_reference(q, cache_k, cache_v, new_k, new_v,
     o = (torch.einsum("bgrs,bsgd->bgrd", p[..., :Sold], ov)
          + torch.einsum("bgrk,bkgd->bgrd", p[..., Sold:], nv)) / l
     return o.to(q.dtype)
+
+
+def paged_decode_splits(B, kvh, n_pages, num_sms):
+    """``(pages_per_split, n_splits)`` of the kernel's grid, from the
+    shapes and the SM count alone (never from ``ctx_len``, which lives on
+    the device): about ``_CTAS_PER_SM`` CTAs per SM over the B * kvh
+    (sequence, kv head) pairs, at most one split per page and at most
+    ``MAX_PAGES_PER_SPLIT`` pages a split. Every page is covered, no split
+    is empty by shape, and there is at least one split."""
+    want = -(-_CTAS_PER_SM * num_sms // max(1, B * kvh))
+    want = max(want, -(-n_pages // MAX_PAGES_PER_SPLIT))
+    want = max(1, min(want, n_pages))
+    pps = max(1, -(-n_pages // want))
+    return pps, max(1, -(-n_pages // pps))
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -94,19 +121,31 @@ def paged_decode_attention(q, cache_k, cache_v, new_k, new_v,
     if any(t.dtype != torch.int32 for t in tensors[5:]):
         raise ValueError("paged_decode_attention: block_tables, ctx_len "
                          "and new_len must be int32")
-    if B > 65535:
-        # one grid row per sequence: CUDA caps gridDim.y
-        raise ValueError(f"paged_decode_attention kernel takes B <= 65535, "
-                         f"got {B}")
+    if any(t.data_ptr() % 16 for t in tensors[1:5]):
+        # K and V rows are copied 16 bytes at a time
+        raise ValueError("paged_decode_attention: cache_k, cache_v, new_k "
+                         "and new_v must start at a 16-byte boundary")
+    pps, n_splits = paged_decode_splits(B, kvh, n_pages,
+                                        _num_sms(q.device.index))
+    if B > 65535 or n_splits > MAX_SPLITS:
+        # one grid row per sequence (CUDA caps gridDim.y); the combine
+        # keeps every split's weights in shared memory
+        raise ValueError(f"paged_decode_attention kernel takes B <= 65535 "
+                         f"and at most {MAX_SPLITS} splits, got {B}, "
+                         f"{n_splits}")
     out = torch.empty_like(q)
     if B == 0 or kvh == 0:
         return out
+    # the splits' partials: acc [.., rep, hd], then (m, l) [.., rep, 2]
+    part = torch.empty(B * kvh * (n_splits + 1) * rep * (hd + 2),
+                       dtype=torch.float32, device=q.device)
     fn = _kernels.lib("paged_decode").paged_decode
     err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
              new_k.data_ptr(), new_v.data_ptr(), block_tables.data_ptr(),
-             ctx_len.data_ptr(), new_len.data_ptr(), out.data_ptr(), B, kvh,
-             rep, hd, P, page_size, n_pages, K, float(hd) ** -0.5,
-             _DTYPES[q.dtype], _kernels.stream_ptr(q.device))
+             ctx_len.data_ptr(), new_len.data_ptr(), part.data_ptr(),
+             out.data_ptr(), B, kvh, rep, hd, P, page_size, n_pages, K, pps,
+             n_splits, float(hd) ** -0.5, _DTYPES[q.dtype],
+             _kernels.stream_ptr(q.device))
     _kernels.check("paged_decode", err)
     paged_decode_attention.launches += 1
     return out

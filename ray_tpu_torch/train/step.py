@@ -64,7 +64,9 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in leaves]
         with torch.no_grad(), record_function("train.grad_norm"):
-            # optax.global_norm: an f32 sum of squares over all leaves
+            # an f32 sum of squares over all leaves, whatever their dtype;
+            # ray_tpu reports optax.global_norm, which sums in the leaf
+            # dtype (bf16 at 8B). Equal in f32; no update reads the norm
             grad_norm = torch.stack([
                 torch.linalg.vector_norm(g, dtype=torch.float32).square()
                 for g in grads]).sum().sqrt()

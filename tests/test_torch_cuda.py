@@ -20,7 +20,9 @@ from ray_tpu_torch.ops import (attention, dq_route, flash_attention,
                                flash_bwd_dkv_reference, flash_bwd_dq,
                                flash_bwd_dq_reference, fwd_route,
                                naive_attention, paged_decode_attention,
-                               paged_decode_attention_reference)
+                               paged_decode_attention_reference,
+                               paged_decode_splits)
+from ray_tpu_torch.ops.paged_attention import _num_sms
 from ray_tpu_torch.train import adamw, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -105,6 +107,17 @@ def test_flash_kernel_reads_strided_views_on_card(gen):
         flash_attention_reference(q, k, v)[0].float(), atol=2e-2, rtol=2e-2)
 
 
+def _assert_bf16_rounding_of_f32(got, args):
+    """bf16 paged decode computes in f32 (P included) and rounds once at
+    the end: within half a bf16 ulp, 2**-8 relative, of the plain version
+    run on the f32 copies of the inputs (1e-5 for the f32 sums' order).
+    P rounded to bf16 before P V fails this."""
+    want = paged_decode_attention_reference(
+        *[a.float() for a in args[:5]], *args[5:])
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want, atol=1e-5, rtol=2 ** -8)
+
+
 def test_paged_kernel_ignores_nan_dump_page_on_card(gen):
     args = _paged_args(gen, 8, 8, 4, 128, 64, 16, 8, torch.bfloat16)
     args[1][0] = float("nan")
@@ -114,9 +127,51 @@ def test_paged_kernel_ignores_nan_dump_page_on_card(gen):
                             device="cuda", dtype=torch.int32)
     got = paged_decode_attention(*args)
     assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(
-        got.float(), paged_decode_attention_reference(*args).float(),
-        atol=2e-2, rtol=2e-2)
+    _assert_bf16_rounding_of_f32(got, args)
+
+
+def _split_span(args):
+    """Positions per split of the grid the wrapper launches for args."""
+    B, kvh = args[0].shape[:2]
+    pps, _ = paged_decode_splits(B, kvh, args[5].shape[1], _num_sms(0))
+    return pps * args[1].shape[1]
+
+
+@pytest.mark.parametrize("case", ["8b_decode", "8k_context",
+                                  "f32_split_edges", "bf16_split_edges"])
+def test_split_paged_kernel_matches_plain_version_on_card(gen, case):
+    """The split-KV kernel against its plain version: bf16 within one
+    rounding of the f32 result at the 8B decode shape (B=8, kvh=8, rep=4,
+    16-page tables), the 8k shape (B=4, 128-page tables, ctx 7650, K=32)
+    and split edges; f32 within 1e-4 at contexts one short of, at and one
+    past a split boundary, tail-only and empty rows. A second launch gives
+    the same bits, and an empty row gives exactly 0."""
+    i32 = dict(dtype=torch.int32, device="cuda")
+    if case == "8b_decode":
+        args = _paged_args(gen, 8, 8, 4, 128, 64, 16, 8, torch.bfloat16)
+    elif case == "8k_context":
+        args = _paged_args(gen, 4, 8, 4, 128, 64, 128, 32, torch.bfloat16)
+        args[6] = torch.full((4,), 7650, **i32)
+        args[7] = torch.full((4,), 32, **i32)
+    else:
+        dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+        args = _paged_args(gen, 6, 2, 3, 128, 16, 9, 4, dtype)
+        span = _split_span(args)
+        args[6] = torch.tensor([span - 1, span, span + 1, 0, 9 * 16, 0],
+                               **i32)
+        args[7] = torch.tensor([1, 2, 3, 4, 1, 0], **i32)
+    got = paged_decode_attention(*args)
+    again = paged_decode_attention(*args)
+    assert got.dtype == args[0].dtype and torch.isfinite(got.float()).all()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(
+            got, paged_decode_attention_reference(*args), atol=1e-4,
+            rtol=1e-4)
+    else:
+        _assert_bf16_rounding_of_f32(got, args)
+    assert torch.equal(got, again)
+    empty = (args[6] + args[7]) == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
 
 
 def test_kernels_count_launches_and_refuse_what_they_do_not_take(gen):

@@ -31,8 +31,10 @@ from ray_tpu_torch.ops import (FlashAttention, _kernels, apply_rotary,
                                flash_attention_reference, flash_bwd_dkv,
                                flash_bwd_dq, fwd_route, naive_attention,
                                paged_decode_attention,
-                               paged_decode_attention_reference, rms_norm,
+                               paged_decode_attention_reference,
+                               paged_decode_splits, rms_norm,
                                rope_frequencies)
+from ray_tpu_torch.ops.paged_attention import MAX_PAGES_PER_SPLIT
 from ray_tpu_torch.ops import quant as tq
 
 # six xdist workers share the machine's cores
@@ -284,6 +286,126 @@ def test_paged_plain_ignores_dump_page_poison(poison):
                                      torch.from_numpy(new_len)))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5)
+
+
+# the kernel's masked score
+NEG_INF = -1e30
+
+
+def _partial(qf, k, v, mask):
+    """One split's f32 state over positions ``mask`` [B, S]: the row max
+    m, the sum l and the unnormalised P V, (m, l) [B, kvh, rep] and acc
+    [B, kvh, rep, hd]; a split with no valid position gives (-1e30, 0,
+    0)."""
+    k = torch.where(mask[:, :, None, None], k, 0.0)
+    v = torch.where(mask[:, :, None, None], v, 0.0)
+    s = torch.einsum("bgrd,bsgd->bgrs", qf, k)
+    keep = mask[:, None, None, :]
+    s = torch.where(keep, s, NEG_INF)
+    m = (s.amax(dim=-1) if s.shape[-1] else
+         torch.full(s.shape[:-1], NEG_INF, device=s.device))
+    p = torch.where(keep, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), torch.einsum("bgrs,bsgd->bgrd", p, v)
+
+
+def paged_decode_split_reference(q, cache_k, cache_v, new_k, new_v,
+                                 block_tables, ctx_len, new_len,
+                                 pages_per_split):
+    """Plain model of the kernel's algorithm: split z takes the positions
+    of pages [z * pages_per_split, (z + 1) * pages_per_split), one more
+    split the burst tail; each gives its partial (m, l, acc), and the
+    partials are merged in split order, split i weighted by exp(m_i - m)
+    and an empty one (l = 0) by exactly 0."""
+    B, kvh, rep, hd = q.shape
+    page = cache_k.shape[1]
+    n_pages, K = block_tables.shape[1], new_k.shape[1]
+    n_splits = max(1, -(-n_pages // pages_per_split))
+    bt = block_tables.long().clamp(0, cache_k.shape[0] - 1)
+    ok = cache_k[bt].reshape(B, n_pages * page, kvh, hd).float()
+    ov = cache_v[bt].reshape(B, n_pages * page, kvh, hd).float()
+    pos = torch.arange(n_pages * page, device=q.device)
+    qf = q.float() * hd ** -0.5
+    span = pages_per_split * page
+    parts = []
+    for z in range(n_splits):
+        cut = slice(z * span, (z + 1) * span)
+        parts.append(_partial(qf, ok[:, cut], ov[:, cut],
+                              pos[None, cut] < ctx_len.long()[:, None]))
+    tail = torch.arange(K, device=q.device)[None, :] < new_len.long()[:, None]
+    parts.append(_partial(qf, new_k.float(), new_v.float(), tail))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    L = torch.zeros_like(M)
+    A = torch.zeros(B, kvh, rep, hd, device=q.device)
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - M), 0.0)
+        L = L + w * l
+        A = A + torch.where(l[..., None] > 0, w[..., None] * acc, 0.0)
+    return (A / L.clamp_min(1e-20)[..., None]).to(q.dtype)
+
+
+
+SPLIT_PAGES, SPLIT_PAGE, SPLIT_K = 6, 16, 4
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3, SPLIT_PAGES + 1])
+def test_paged_split_model_matches_pallas_interpret(pps):
+    """The kernel's split-and-combine (pages_per_split pages a split, the
+    tail one more split, merged in split order) against the Pallas kernel
+    in interpret mode: contexts one short of and one past a split
+    boundary, a tail-only row, a full table, a row whose later splits are
+    all empty, and an all-empty row, which gives exactly 0. The kernel's
+    inputs carry NaN on the dump page (page 0, padding every table past
+    its context); the Pallas kernel, which multiplies masked rows by a
+    zero weight, gets a clean copy."""
+    rng = np.random.default_rng(20 + pps)
+    B, kvh, rep, hd, K = 6, 2, 4, 64, SPLIT_K
+    page, n_pages = SPLIT_PAGE, SPLIT_PAGES
+    total, span = n_pages * page, pps * page
+    args = _paged_case(rng, B, kvh, rep, hd, page, n_pages, 1 + B * n_pages,
+                       K)
+    ctx = np.asarray([min(span, total) - 1, min(span + 1, total), 0, total,
+                      5, 0], np.int32)
+    new_len = np.asarray([2, 1, K, 3, 1, 0], np.int32)
+    bt = 1 + np.arange(B * n_pages, dtype=np.int32).reshape(B, n_pages)
+    for b in range(B):
+        bt[b, -(-ctx[b] // page):] = 0
+    args[5] = bt
+    clean = [a.copy() for a in args]
+    args[1][0] = float("nan")
+    args[2][0] = float("nan")
+    want, _ = _both_paged(clean, ctx, new_len, page)
+    t = [_t(a) for a in args[:5]] + [torch.from_numpy(bt)]
+    lens = torch.from_numpy(ctx), torch.from_numpy(new_len)
+    got = _np(paged_decode_split_reference(*t, *lens, pps))
+    valid = ctx + new_len > 0
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[valid], want[valid], atol=3e-5, rtol=3e-5)
+    assert np.abs(got[~valid]).max() == 0.0
+    # and the plain version, which the wrapper runs on the CPU
+    np.testing.assert_allclose(
+        got, _np(paged_decode_attention_reference(*t, *lens)), atol=3e-5,
+        rtol=3e-5)
+
+
+@pytest.mark.parametrize("B,kvh,n_pages,sms", [
+    (8, 8, 16, 132),        # the 8B decode shape
+    (4, 8, 128, 132),       # the 8k shape
+    (1, 1, 1, 132), (1, 1, 0, 132), (1, 8, 2049, 132),
+    (64, 8, 16, 132),       # more pairs than CTAs wanted: one split
+    (3, 2, 7, 1), (2, 1, 100000, 16), (5, 4, 33, 114),
+])
+def test_paged_split_rule_is_a_function_of_shapes(B, kvh, n_pages, sms):
+    """(pages_per_split, n_splits) from B, kvh, the table width and the SM
+    count: at least one split, every page covered, no split empty by
+    shape, at most MAX_PAGES_PER_SPLIT pages a split; about two CTAs per
+    SM where there are pages enough."""
+    pps, n = paged_decode_splits(B, kvh, n_pages, sms)
+    assert pps >= 1 and n >= 1
+    assert pps * n >= n_pages and (n - 1) * pps < max(n_pages, 1)
+    assert pps <= MAX_PAGES_PER_SPLIT
+    if n_pages >= -(-2 * sms // (B * kvh)):
+        assert B * kvh * (n + 1) >= 2 * sms
+    assert paged_decode_splits(B, kvh, n_pages, sms) == (pps, n)
 
 
 def _rel_err(got, want):

@@ -23,6 +23,7 @@ from ray_tpu.models import param_logical_axes
 from ray_tpu.parallel import MeshSpec, build_mesh
 from ray_tpu.train import make_train_step as j_make_train_step
 
+from ray_tpu_torch._private.tree import tree_leaves
 from ray_tpu_torch.models import (LLAMA_CONFIGS, init_params, lm_loss,
                                   opt_state_from_jax, params_from_jax,
                                   params_to_numpy)
@@ -199,3 +200,42 @@ def test_eval_step_flops_and_place_batch():
             == params["layers"]["wq"][1].data_ptr())
     np.testing.assert_allclose(
         eval_fn(state.params, placed).item(), loss.item(), rtol=1e-6)
+
+
+def test_grad_norm_in_bf16_is_an_f32_sum_where_optax_sums_in_bf16():
+    """``tiny`` in bf16, one step from the same weights and batch: the
+    port's grad_norm is an f32 sum of squares over its own gradients (to
+    1e-6 relative); ray_tpu reports optax.global_norm, summed in the leaf
+    dtype (bf16), so the two agree only to bf16's precision (2e-2
+    relative, the bf16 tolerance of the kernel tests). No update reads the
+    norm."""
+    jcfg = dataclasses.replace(J_TINY, dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(TINY, dtype=torch.bfloat16)
+    jparams = j_init(jax.random.PRNGKey(1), jcfg)
+    weights = _np_tree(jparams)
+    batch = _batch(0)
+    mesh = build_mesh(MeshSpec(), [jax.devices("cpu")[0]])
+    init_fn, step_fn, place_batch = j_make_train_step(
+        lambda p, b: j_lm_loss(p, b, jcfg), optax.adamw(1e-3), mesh,
+        param_logical_axes(jcfg))
+    _, m = step_fn(init_fn(jparams), place_batch(
+        {k: jnp.asarray(v) for k, v in batch.items()}))
+    assert m["grad_norm"].dtype == jnp.bfloat16
+    want = float(m["grad_norm"])
+
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: lm_loss(p, b, tcfg), adamw(1e-3), device="cpu")
+    placed = place_batch(batch)
+    _, metrics = step_fn(init_fn(params_from_jax(weights, device="cpu")),
+                         placed)
+    got = metrics["grad_norm"]
+    assert got.dtype == torch.float32
+    # the port's own gradients, from a fresh copy of the same weights
+    state = init_fn(params_from_jax(weights, device="cpu"))
+    lm_loss(state.params, placed, tcfg).backward()
+    grads = [p.grad for p in tree_leaves(state.params)]
+    assert all(g is not None and g.dtype == torch.bfloat16 for g in grads)
+    f32 = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+    np.testing.assert_allclose(got.item(), f32.item(), rtol=1e-6)
+    np.testing.assert_allclose(got.item(), want, rtol=2e-2)
