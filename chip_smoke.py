@@ -16,13 +16,25 @@ Phases, one JSON line each on stdout:
      engine_8k - the same weights at 8k context (bench.py's long-context
                family): four 7,650-token prompts, two timed 32-step bursts,
                every decode step through the paged kernel.
+     spec    - the same model, configuration and 8 prompts, 32 greedy
+               tokens each, speculatively decoded with 4 draft tokens: a
+               Llama-3.2-1B shaped drafter (random, seed 11; reject regime)
+               and the target as its own drafter (agree regime, acceptance
+               at least 0.9).
+     lora    - the same with lora_rank 16: two seeded adapters worn by 2
+               requests each; the 4 base requests must give exactly the
+               engine phase's streams.
+     fleet   - a prefill engine exports the 4 longest prompts after their
+               first token; a second engine injects them and decodes 32
+               tokens each with no prefill.
   5. train   - Llama-3-8B (full width and depth, bf16, seed 7, remat
                "full") trained by make_train_step with AdamW at B=1,
                S=2048: one warm-up step, then 3 timed steps on one batch;
                checks the loss falls, the launch counts, the peak memory.
   6. reference - a small f32 model served, then trained 3 steps, on the
                card and on the CPU from the same weights: identical greedy
-               streams, and the same losses and params.
+               streams (plain, speculative in both regimes, LoRA, export ->
+               inject), and the same losses and params.
   7. timing  - kernel, plain-version and library times, and the bound.
 A comma-separated list of phases runs only those and prints no result;
 `profile` and `profile_train` (not in the default run) trace, with
@@ -466,6 +478,20 @@ def _serving_params(torch):
     return _SERVING["params"], _SERVING["init_s"]
 
 
+# the engine phase's configuration, shared by the spec, lora and fleet
+# phases: 8 slots of 1,024 positions in 64-token pages, 8-step bursts
+SERVE_ECFG = dict(max_num_seqs=8, page_size=64, max_seq_len=1024,
+                  num_pages=1 + 8 * 16, decode_burst=8)
+SERVE_LENS = (17, 64, 100, 200, 300, 400, 480, 511)
+SLICE_TOKENS = 32      # new tokens a request in the spec, lora, fleet phases
+
+
+def _serving_prompts(torch, vocab):
+    g = torch.Generator().manual_seed(7)
+    return [torch.randint(0, vocab, (n,), generator=g).tolist()
+            for n in SERVE_LENS]
+
+
 def phase_engine(torch):
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import LLAMA_CONFIGS
@@ -474,13 +500,9 @@ def phase_engine(torch):
 
     cfg = LLAMA_CONFIGS["8b"]
     params, init_s = _serving_params(torch)
-    ecfg = EngineConfig(max_num_seqs=8, page_size=64, max_seq_len=1024,
-                        num_pages=1 + 8 * 16, decode_burst=8)
-    engine = LLMEngine(params, cfg, ecfg, device="cuda")
-    g = torch.Generator().manual_seed(7)
-    lens = [17, 64, 100, 200, 300, 400, 480, 511]
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
-               for n in lens]
+    engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG),
+                       device="cuda")
+    prompts = _serving_prompts(torch, cfg.vocab)
     sp = SamplingParams(temperature=0.0, max_tokens=64)
 
     # warm-up request (cuBLAS handles, allocator), not counted
@@ -488,8 +510,7 @@ def phase_engine(torch):
                                                       max_tokens=9))
     torch.cuda.synchronize()
 
-    flash_attention.launches = flash_attention.launches_tc = 0
-    paged_decode_attention.launches = 0
+    _zero_serving_counts()
     before = engine.stats()
     # TTFT of the 511-token prompt on an idle engine (one prefill step)
     rid = engine.add_request(prompts[-1], sp)
@@ -523,12 +544,13 @@ def phase_engine(torch):
                 f"request {i} did not finish with 64 tokens")
         require(all(0 <= t < cfg.vocab for t in st.output),
                 f"request {i} produced out-of-range tokens")
+    # the greedy streams in prompt order, for the later serving phases
+    _SERVING["streams"] = [engine.requests[i].output for i in ids]
 
     # a second engine on the same params: chunked prefill, one request
-    eng2 = LLMEngine(params, cfg, EngineConfig(
-        max_num_seqs=8, page_size=64, max_seq_len=1024,
-        num_pages=1 + 8 * 16, decode_burst=8, prefill_chunk=256),
-        device="cuda")
+    eng2 = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG,
+                                               prefill_chunk=256),
+                     device="cuda")
     out2 = eng2.generate([prompts[-1]], sp)[0]
     torch.cuda.synchronize()
     require(len(out2) == 64, "chunked-prefill request did not finish")
@@ -689,6 +711,308 @@ def _paged_vs_gather(torch, engine, params, cfg, prompts):
     return outs[True]
 
 
+def _lockstep(torch, engine, prompts, sp, model_ids=None):
+    """The engine phase's schedule: the last prompt prefilled alone, then
+    the others, then decode until every request finishes. Returns the
+    streams in prompt order, the tokens emitted after the prefills and
+    the host seconds that took (ending in synchronize())."""
+    model_ids = model_ids or [None] * len(prompts)
+    ids = [None] * len(prompts)
+    ids[-1] = engine.add_request(prompts[-1], sp, model_id=model_ids[-1])
+    engine.step(skip_decode=True)
+    for i in range(len(prompts) - 1):
+        ids[i] = engine.add_request(prompts[i], sp, model_id=model_ids[i])
+    while sum(s is not None and s.ctx_len > 0
+              for s in engine.slots) < len(prompts):
+        engine.step(skip_decode=True)
+    torch.cuda.synchronize()
+    before = sum(len(engine.requests[i].output) for i in ids)
+    t0 = time.perf_counter()
+    while engine.has_unfinished():
+        engine.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    streams = [engine.requests[i].output for i in ids]
+    return streams, sum(map(len, streams)) - before, dt
+
+
+def _base_streams(torch, params, cfg, prompts):
+    """The engine phase's greedy streams, or, in a run without that
+    phase, those of a plain engine on its schedule."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+
+    if "streams" not in _SERVING:
+        engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG),
+                           device="cuda")
+        _SERVING["streams"] = _lockstep(torch, engine, prompts,
+                                        SamplingParams(
+                                            temperature=0.0,
+                                            max_tokens=SLICE_TOKENS))[0]
+    return [s[:SLICE_TOKENS] for s in _SERVING["streams"]]
+
+
+def _same_prefix(a, b):
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def _zero_serving_counts():
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    flash_attention.launches = flash_attention.launches_tc = 0
+    paged_decode_attention.launches = 0
+
+
+def _serving_counts():
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    return {"flash_fwd": flash_attention.launches,
+            "flash_fwd_tc": flash_attention.launches_tc,
+            "paged_decode": paged_decode_attention.launches}
+
+
+def _check_streams(streams, vocab, n, what):
+    for i, out in enumerate(streams):
+        require(len(out) == n and all(0 <= t < vocab for t in out),
+                f"{what}: request {i} gave {len(out)} tokens or one out of "
+                f"range")
+
+
+def phase_spec(torch, card):
+    """Speculative decoding at full width: the engine phase's model,
+    configuration and 8 prompts, 32 greedy tokens each, with a Llama-3.2-1B
+    shaped drafter (random, seed 11; reject regime) and with the target as
+    its own drafter (agree regime), 4 draft tokens a round."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    cfg = LLAMA_CONFIGS["8b"]
+    params, _ = _serving_params(torch)
+    prompts = _serving_prompts(torch, cfg.vocab)
+    base = _base_streams(torch, params, cfg, prompts)
+    sp = SamplingParams(temperature=0.0, max_tokens=SLICE_TOKENS)
+    launches = {"flash_fwd": 0, "paged_decode": 0}
+    for regime, spec, draft_params in (
+            ("reject", {"draft_config": "1b", "num_draft_tokens": 4,
+                        "draft_seed": 11}, None),
+            ("agree", {"draft_config": "8b", "num_draft_tokens": 4},
+             params)):
+        engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG),
+                           device="cuda")
+        engine.enable_speculation(spec, draft_params=draft_params)
+        dcfg = engine.spec.dcfg
+        draft_s = []
+        draft = engine.spec.draft
+
+        def timed_draft(*args, _draft=draft, _times=draft_s):
+            t0 = time.perf_counter()
+            out = _draft(*args)
+            torch.cuda.synchronize()
+            _times.append(time.perf_counter() - t0)
+            return out
+
+        engine.spec.draft = timed_draft
+        torch.cuda.synchronize()
+        _zero_serving_counts()
+        streams, tokens, dt = _lockstep(torch, engine, prompts, sp)
+        counts = _serving_counts()
+        st = engine.stats()
+        sst = st["spec"]
+        want_flash = (cfg.n_layers * st["prefills"]
+                      + dcfg.n_layers * st["draft_prefills"])
+        emit({"phase": "spec", "regime": regime, "model": "llama3-8b",
+              "drafter": spec["draft_config"], "dtype": "bf16",
+              "num_draft_tokens": spec["num_draft_tokens"],
+              "requests": len(prompts), "tokens_each": SLICE_TOKENS,
+              "acceptance_ratio": sst["acceptance_ratio"],
+              "rounds": sst["rounds"], "verify_steps": st["verify_steps"],
+              "emitted_per_round": engine.spec.emitted_total / max(
+                  1, sst["rounds"]),
+              "draft_ms_per_round": 1e3 * sum(draft_s) / max(
+                  1, len(draft_s)),
+              "verify_ms_per_round": 1e3 * sum(engine.spec.verify_times)
+              / max(1, len(engine.spec.verify_times)),
+              "decode_tok_s": tokens / dt, "decode_tokens": tokens,
+              "draft_prefills": st["draft_prefills"],
+              "plain_decode_steps": st["decode_steps"],
+              "matches_engine_stream": [_same_prefix(a, b) for a, b in
+                                        zip(streams, base)],
+              **{k + "_launches": v for k, v in counts.items()},
+              "expected_flash": want_flash,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "nvidia_smi": card})
+        _check_streams(streams, cfg.vocab, SLICE_TOKENS, f"spec {regime}")
+        require(sst["rounds"] > 0 and st["draft_prefills"] >= len(prompts),
+                f"spec {regime}: no drafted round or drafter warm-up")
+        # every prefill, the drafter's warm-ups included, on the flash
+        # kernel's tensor-core route
+        require(counts["flash_fwd"] == counts["flash_fwd_tc"] == want_flash,
+                f"spec {regime}: flash launches {counts}, expected "
+                f"{want_flash}")
+        require(counts["paged_decode"] == cfg.n_layers
+                * st["paged_decode_steps"],
+                f"spec {regime}: paged launches {counts}")
+        if regime == "agree":
+            require(sst["acceptance_ratio"] >= 0.9,
+                    f"agree regime acceptance {sst['acceptance_ratio']}")
+            require(sst["rounds"] < engine.spec.emitted_total,
+                    "agree regime: no more tokens than rounds")
+        launches["flash_fwd"] += counts["flash_fwd"]
+        launches["paged_decode"] += counts["paged_decode"]
+        del engine, draft, timed_draft
+        torch.cuda.empty_cache()
+    return launches
+
+
+LORA_RANK = 16
+
+
+def _lora_adapter(torch, cfg, seed, device, b_std):
+    """A seeded adapter at LORA_RANK with a non-zero B (std ``b_std``),
+    scale 1.0."""
+    from ray_tpu_torch.llm import init_lora_adapter
+
+    a = init_lora_adapter(cfg, LORA_RANK, seed=seed, dtype=cfg.dtype,
+                          device=device)
+    g = torch.Generator(device).manual_seed(seed + 1000)
+    for name in ("b_q", "b_v"):
+        a[name] = (torch.randn(a[name].shape, generator=g, device=device)
+                   * b_std).to(cfg.dtype)
+    return a
+
+
+def phase_lora(torch, card):
+    """Multi-LoRA at full width: the engine phase's model, configuration
+    and 8 prompts (32 greedy tokens each) with lora_rank 16, max_loras 4;
+    two adapters worn by 2 requests each, 4 requests on the base model,
+    which must give exactly the engine phase's streams."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    cfg = LLAMA_CONFIGS["8b"]
+    params, _ = _serving_params(torch)
+    prompts = _serving_prompts(torch, cfg.vocab)
+    base = _base_streams(torch, params, cfg, prompts)
+    engine = LLMEngine(params, cfg, EngineConfig(
+        **SERVE_ECFG, lora_rank=LORA_RANK, max_loras=4), device="cuda")
+    for name, seed in (("a", 21), ("b", 22)):
+        engine.add_lora(name, _lora_adapter(torch, cfg, seed, "cuda", 0.01))
+    model_ids = ["a", None, "b", None, "a", None, "b", None]
+    sp = SamplingParams(temperature=0.0, max_tokens=SLICE_TOKENS)
+    torch.cuda.synchronize()
+    _zero_serving_counts()
+    streams, tokens, dt = _lockstep(torch, engine, prompts, sp, model_ids)
+    counts = _serving_counts()
+    st = engine.stats()
+    L = cfg.n_layers
+    same = [_same_prefix(a, b) for a, b in zip(streams, base)]
+    emit({"phase": "lora", "model": "llama3-8b", "dtype": "bf16",
+          "lora_rank": LORA_RANK, "max_loras": 4, "model_ids": model_ids,
+          "requests": len(prompts), "tokens_each": SLICE_TOKENS,
+          "decode_tok_s": tokens / dt, "decode_tokens": tokens,
+          "matches_engine_stream": same, "prefills": st["prefills"],
+          "decode_steps": st["decode_steps"],
+          "paged_decode_steps": st["paged_decode_steps"],
+          **{k + "_launches": v for k, v in counts.items()},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": card})
+    _check_streams(streams, cfg.vocab, SLICE_TOKENS, "lora")
+    for i, m in enumerate(model_ids):
+        if m is None:
+            require(streams[i] == base[i], f"lora: base request {i} differs "
+                    f"from the engine phase's stream after {same[i]} tokens")
+        else:
+            require(streams[i] != base[i],
+                    f"lora: adapter {m} did not change request {i}")
+    require(st["paged_decode_steps"] == st["decode_steps"] > 0
+            and counts["paged_decode"] == L * st["decode_steps"],
+            f"lora: a decode step did not take the paged kernel {counts}")
+    require(counts["flash_fwd"] == counts["flash_fwd_tc"]
+            == L * st["prefills"] == L * len(prompts),
+            f"lora: a prefill did not take flash_fwd_tc {counts}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"flash_fwd": counts["flash_fwd"],
+            "paged_decode": counts["paged_decode"]}
+
+
+def phase_fleet(torch, card):
+    """The fleet KV plane at full width: a prefill engine takes the 4
+    longest prompts to their first token and exports them; a second engine
+    injects the payloads and decodes 32 tokens each."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    cfg = LLAMA_CONFIGS["8b"]
+    params, _ = _serving_params(torch)
+    prompts = _serving_prompts(torch, cfg.vocab)
+    base = _base_streams(torch, params, cfg, prompts)
+    sp = SamplingParams(temperature=0.0, max_tokens=SLICE_TOKENS)
+    pre = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG), device="cuda")
+    dec = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG), device="cuda")
+    picks = list(range(4, 8))
+    _zero_serving_counts()
+    payloads = []
+    for i in picks:
+        rid = pre.add_request(prompts[i], sp)
+        while pre.requests[rid].ctx_len <= 0:
+            pre.step(skip_decode=True)
+        payloads.append(pre.export_kv_request(rid))
+    prefill_counts = _serving_counts()
+    mb = [(p["k"].nbytes + p["v"].nbytes) / 1e6 for p in payloads]
+    inject_ms, ids = [], []
+    for p in payloads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids.append(dec.inject_request(p, sp))
+        torch.cuda.synchronize()
+        inject_ms.append((time.perf_counter() - t0) * 1e3)
+    joined = [dec.requests[r].ctx_len > 0 for r in ids]
+    _zero_serving_counts()
+    t0 = time.perf_counter()
+    while dec.has_unfinished():
+        dec.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _serving_counts()
+    st = dec.stats()
+    streams = [dec.requests[r].output for r in ids]
+    same = [_same_prefix(s, base[i]) for s, i in zip(streams, picks)]
+    L = cfg.n_layers
+    emit({"phase": "fleet", "model": "llama3-8b", "dtype": "bf16",
+          "requests": len(picks), "prompt_lens": [len(prompts[i])
+                                                  for i in picks],
+          "tokens_each": SLICE_TOKENS, "payload_mb": mb,
+          "inject_ms": inject_ms, "joined_decode": joined,
+          "decode_tok_s": (sum(map(len, streams)) - len(picks)) / dt,
+          "matches_monolithic_stream": same,
+          "decode_prefills": st["prefills"], "injected": st["injected"],
+          "decode_steps": st["decode_steps"],
+          "paged_decode_steps": st["paged_decode_steps"],
+          "prefill_flash_launches": prefill_counts["flash_fwd"],
+          "decode_paged_launches": counts["paged_decode"],
+          "nvidia_smi": card})
+    _check_streams(streams, cfg.vocab, SLICE_TOKENS, "fleet")
+    require(all(joined) and st["injected"] == len(picks)
+            and st["prefills"] == st["prefill_chunks"] == 0,
+            "fleet: an injected request was recomputed")
+    require(st["paged_decode_steps"] == st["decode_steps"] > 0
+            and counts["paged_decode"] == L * st["decode_steps"],
+            f"fleet: a decode step did not take the paged kernel {counts}")
+    require(prefill_counts["flash_fwd"] == prefill_counts["flash_fwd_tc"]
+            == L * len(picks), f"fleet: prefill launches {prefill_counts}")
+    del pre, dec
+    torch.cuda.empty_cache()
+    return {"flash_fwd": prefill_counts["flash_fwd"],
+            "paged_decode": counts["paged_decode"]}
+
+
 def _train_wrappers():
     from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                              flash_bwd_dq)
@@ -840,7 +1164,82 @@ def phase_reference(torch):
     # f32 serves through the SIMT forward kernel
     require(counts["flash_fwd"] > 0 and counts["flash_fwd_tc"] == 0,
             f"reference serving launches {counts}")
+    _reference_paths(torch, cfg, params, prompts, sp, streams["cpu", 0])
     _reference_train(torch, cfg, params)
+
+
+def _reference_paths(torch, cfg, params, prompts, sp, want):
+    """The slice's serving paths on the same f32 model, on the card and
+    on the CPU: a drafter that agrees (the target) and one that rejects
+    (seed 5), two LoRA adapters beside base requests, and export ->
+    inject into a second engine. Each gives greedy streams identical on
+    both devices, and the speculative and handed-off ones (and the LoRA
+    engine's base requests) identical to the plain engine's."""
+    from ray_tpu_torch._private.tree import tree_map
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import init_params
+
+    ecfg = dict(max_num_seqs=4, page_size=16, num_pages=64, max_seq_len=128,
+                decode_burst=4)
+    drafter = init_params(cfg, seed=5, device="cpu")
+    adapters = {name: _lora_adapter(torch, cfg, seed, "cpu", 0.05)
+                for name, seed in (("a", 31), ("b", 32))}
+    model_ids = ["a", None, "b", "a"]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        def on(tree, dev=dev):
+            return tree_map(lambda t: t.to(dev) if isinstance(
+                t, torch.Tensor) else t, tree)
+
+        p = on(params)
+        for regime, dp in (("agree", p), ("reject", on(drafter))):
+            eng = LLMEngine(p, cfg, EngineConfig(**ecfg), device=dev)
+            eng.enable_speculation({"draft_config": cfg,
+                                    "num_draft_tokens": 3}, draft_params=dp)
+            got[dev, regime] = eng.generate(prompts, sp)
+            got[dev, regime + "_acceptance"] = eng.stats()["spec"][
+                "acceptance_ratio"]
+        eng = LLMEngine(p, cfg, EngineConfig(**ecfg, lora_rank=LORA_RANK),
+                        device=dev)
+        for name, a in adapters.items():
+            eng.add_lora(name, on(a))
+        ids = [eng.add_request(q, sp, model_id=m)
+               for q, m in zip(prompts, model_ids)]
+        while eng.has_unfinished():
+            eng.step()
+        got[dev, "lora"] = [eng.requests[i].output for i in ids]
+        pre = LLMEngine(p, cfg, EngineConfig(**ecfg), device=dev)
+        dec = LLMEngine(p, cfg, EngineConfig(**ecfg), device=dev)
+        ids = []
+        for q in prompts:
+            rid = pre.add_request(q, sp)
+            while pre.requests[rid].ctx_len <= 0:
+                pre.step(skip_decode=True)
+            ids.append(dec.inject_request(pre.export_kv_request(rid), sp))
+        while dec.has_unfinished():
+            dec.step()
+        got[dev, "inject"] = [dec.requests[i].output for i in ids]
+        got[dev, "inject_prefills"] = dec.stats()["prefills"]
+    torch.cuda.synchronize()
+    checks = {
+        "spec_agree": got["cuda", "agree"] == got["cpu", "agree"] == want,
+        "spec_reject": got["cuda", "reject"] == got["cpu", "reject"] == want,
+        "lora_card_equals_cpu": got["cuda", "lora"] == got["cpu", "lora"],
+        "lora_base_equals_plain": all(
+            got["cuda", "lora"][i] == want[i]
+            for i, m in enumerate(model_ids) if m is None),
+        "lora_adapters_act": all(
+            got["cuda", "lora"][i] != want[i]
+            for i, m in enumerate(model_ids) if m is not None),
+        "inject": got["cuda", "inject"] == got["cpu", "inject"] == want,
+        "inject_without_prefill": got["cuda", "inject_prefills"]
+        == got["cpu", "inject_prefills"] == 0,
+    }
+    emit({"phase": "reference_paths", "model": "2-layer f32, head_dim 128",
+          "acceptance": {f"{dev}_{key}": v for (dev, key), v in got.items()
+                         if key.endswith("_acceptance")},
+          **checks})
+    require(all(checks.values()), f"reference paths failed: {checks}")
 
 
 def _reference_train(torch, cfg, params):
@@ -1168,20 +1567,18 @@ def _profile_window(torch, fn):
 def phase_profile(torch):
     """Where the serving time goes at the engine phases' shapes: one
     whole-prompt prefill of 511 tokens on an idle engine, one decode burst
-    at B=8, and one 32-step burst at 8k context (B=4), each traced once
+    at B=8, one speculative round in each regime and one LoRA burst at
+    B=8, and one 32-step burst at 8k context (B=4), each traced once
     after a warm-up."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params
 
     cfg = LLAMA_CONFIGS["8b"]
     params = init_params(cfg, seed=7, device="cuda")
-    engine = LLMEngine(params, cfg, EngineConfig(
-        max_num_seqs=8, page_size=64, max_seq_len=1024,
-        num_pages=1 + 8 * 16, decode_burst=8), device="cuda")
-    g = torch.Generator().manual_seed(7)
+    engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG),
+                       device="cuda")
     sp = SamplingParams(temperature=0.0, max_tokens=64)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
-               for n in (17, 64, 100, 200, 300, 400, 480, 511)]
+    prompts = _serving_prompts(torch, cfg.vocab)
     engine.generate([prompts[0]], SamplingParams(temperature=0.0,
                                                  max_tokens=9))
     warm = engine.add_request(prompts[-1], sp)
@@ -1201,6 +1598,35 @@ def phase_profile(torch):
     emit({"phase": "profile", "window": "one decode burst, K=8, B=8",
           **decode})
     del engine
+    # the slice's serving paths at B=8: one speculative round per regime,
+    # one LoRA decode burst, each after a warm-up round
+    for name, ecfg, spec, draft_params, model_ids in (
+            ("one speculative round, reject regime (1B-shaped drafter), "
+             "k=4, B=8", {}, {"draft_config": "1b", "num_draft_tokens": 4,
+                              "draft_seed": 11}, None, None),
+            ("one speculative round, agree regime (8B drafter), k=4, B=8",
+             {}, {"draft_config": "8b", "num_draft_tokens": 4}, params,
+             None),
+            ("one LoRA decode burst, rank 16, 4 of 8 rows on adapters, "
+             "K=8, B=8", {"lora_rank": LORA_RANK, "max_loras": 4}, None,
+             None, ["a", None, "b", None] * 2)):
+        engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG, **ecfg),
+                           device="cuda")
+        if spec:
+            engine.enable_speculation(spec, draft_params=draft_params)
+        if model_ids:
+            for m, seed in (("a", 21), ("b", 22)):
+                engine.add_lora(m, _lora_adapter(torch, cfg, seed, "cuda",
+                                                 0.01))
+        for p, m in zip(prompts, model_ids or [None] * len(prompts)):
+            engine.add_request(p, sp, model_id=m)
+        while sum(s is not None and s.ctx_len > 0
+                  for s in engine.slots) < 8:
+            engine.step(skip_decode=True)
+        engine.step()                       # warm-up (drafter warm-ups)
+        window, _ = _profile_window(torch, engine.step)
+        emit({"phase": "profile", "window": name, **window})
+        del engine
     engine, _ = _engine_8k(torch, params, cfg)
     decode, _ = _profile_window(torch, engine.step)
     emit({"phase": "profile", "window": "one decode burst at 8k context, "
@@ -1281,8 +1707,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    all_phases = ["build", "parity", "engine", "engine_8k", "train",
-                  "reference", "timing"]
+    all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
+                  "fleet", "train", "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
         card = phase_device(torch)
@@ -1295,9 +1721,15 @@ def main() -> int:
             launches = phase_engine(torch)
             torch.cuda.empty_cache()
         if "engine_8k" in phases:
-            # paged_decode runs on both serving paths: its row counts both
+            # paged_decode runs on every serving path: its row counts all
             launches["paged_decode"] = (launches.get("paged_decode", 0)
                                         + phase_engine_8k(torch, card))
+        for name, phase in (("spec", phase_spec), ("lora", phase_lora),
+                            ("fleet", phase_fleet)):
+            if name in phases:
+                for kernel, n in phase(torch, card).items():
+                    launches[kernel] = launches.get(kernel, 0) + n
+                torch.cuda.empty_cache()
         _SERVING.clear()
         torch.cuda.empty_cache()
         if "train" in phases:

@@ -1,12 +1,17 @@
-"""Serving on the port: paged KV cache, sampler, runner and engine."""
+"""Serving on the port: paged KV cache, sampler, runner, engine, multi-LoRA
+and speculative decoding."""
 
 from .cache import (KVCache, PageAllocator, PrefixCache, SequenceTable,
                     chained_page_keys, init_kv_cache)
 from .engine import EngineConfig, LLMEngine, RequestState, StepOutput
+from .lora import LoRAPool, init_lora_adapter, lora_delta
 from .sampling import TOP_K_CAP, SamplingParams, sample_from_logits
+from .spec_decode import SpecConfig, SpecDecoder, accept_prefix, remote_verify
 
 __all__ = [
-    "EngineConfig", "KVCache", "LLMEngine", "PageAllocator", "PrefixCache",
-    "RequestState", "SamplingParams", "SequenceTable", "StepOutput",
-    "TOP_K_CAP", "chained_page_keys", "init_kv_cache", "sample_from_logits",
+    "EngineConfig", "KVCache", "LLMEngine", "LoRAPool", "PageAllocator",
+    "PrefixCache", "RequestState", "SamplingParams", "SequenceTable",
+    "SpecConfig", "SpecDecoder", "StepOutput", "TOP_K_CAP", "accept_prefix",
+    "chained_page_keys", "init_kv_cache", "init_lora_adapter", "lora_delta",
+    "remote_verify", "sample_from_logits",
 ]

@@ -11,8 +11,15 @@ one decode burst of K steps runs on the device, and the [K, B] tokens
 come back in one copy. The device copy of the block table is refreshed
 only when the table changed or the span differs.
 
-Not ported yet: LoRA (``lora_rank > 0``), speculative decoding
-(``speculation``) and the export/snapshot/inject fleet plane.
+It serves the reference's whole single-device surface: multi-LoRA
+(``lora_rank``, ``model_id``, ``add_lora``/``remove_lora``; llm/lora.py),
+speculative decoding (``speculation``, ``enable_speculation``,
+``verify_request``; llm/spec_decode.py) and the fleet KV plane
+(``export_kv_request``, ``snapshot_kv_request``, ``inject_request``). KV
+payloads hold host ``torch`` tensors in the cache dtype (the reference's
+hold numpy arrays); ``inject_request`` also takes numpy f32 or f16.
+
+Not ported yet: MoE (``n_experts > 0``) raises.
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ from .._private.device import resolve_device
 from ..models.llama import LlamaConfig
 from ..ops import rope_frequencies
 from .cache import PageAllocator, PrefixCache, SequenceTable, init_kv_cache
+from .lora import LoRAPool, init_lora_adapter
 from .runner import (decode_burst, prefill_bucket, prefill_chunk,
-                     prefill_sample, sample_logits)
+                     prefill_sample, sample_logits, verify_step)
 from .sampling import SamplingParams
+from .spec_decode import SpecDecoder, accept_prefix
 
 
 @dataclass
@@ -50,9 +59,14 @@ class EngineConfig:
     prefill_chunk: int = 0
     # finished RequestStates kept for inspection before FIFO eviction
     finished_retention: int = 1024
-    # not ported yet: must stay 0 / None
+    # multi-LoRA (llm/lora.py): rank > 0 builds a static adapter pool of
+    # max_loras slots; requests carry model_id. Incompatible with prefix
+    # caching (cached pages would mix adapters) and chunked prefill.
     lora_rank: int = 0
     max_loras: int = 8
+    # speculative decoding (llm/spec_decode.py): {"draft_config": ...,
+    # "num_draft_tokens": k} or a SpecConfig; greedy requests get k draft
+    # tokens verified a round. None = off. Incompatible with lora_rank.
     speculation: Any = None
     # automatic prefix caching over shared, refcounted pages; forces
     # chunked prefill
@@ -108,11 +122,6 @@ class LLMEngine:
         self._paged_min_pages = int(
             global_config().llm_paged_kernel_min_ctx_pages)
         self.ecfg = engine_config or EngineConfig()
-        if self.ecfg.lora_rank > 0:
-            raise NotImplementedError("LoRA serving is not ported yet")
-        if self.ecfg.speculation:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet")
         if self.ecfg.max_seq_len > cfg.max_seq:
             raise ValueError("engine max_seq_len exceeds model max_seq")
         usable = self.ecfg.num_pages - 1
@@ -130,6 +139,19 @@ class LLMEngine:
                                    device=self.device)
         self.allocator = PageAllocator(self.ecfg.num_pages,
                                        self.ecfg.page_size)
+        self.lora_pool: Optional[LoRAPool] = None
+        if self.ecfg.lora_rank > 0:
+            if self.ecfg.enable_prefix_caching:
+                raise ValueError(
+                    "lora_rank and enable_prefix_caching are mutually "
+                    "exclusive (cached pages would mix adapters)")
+            if self.ecfg.prefill_chunk > 0:
+                raise ValueError(
+                    "lora_rank requires whole-prompt prefill "
+                    "(prefill_chunk=0) for now")
+            self.lora_pool = LoRAPool(cfg, self.ecfg.lora_rank,
+                                      self.ecfg.max_loras, dtype=cfg.dtype,
+                                      device=self.device)
         self.prefix_cache: Optional[PrefixCache] = None
         if self.ecfg.enable_prefix_caching:
             self.prefix_cache = PrefixCache(self.allocator)
@@ -143,6 +165,13 @@ class LLMEngine:
         self.cos, self.sin = rope_frequencies(cfg.head_dim, cfg.max_seq,
                                               cfg.rope_theta,
                                               device=self.device)
+        self.spec: Optional[SpecDecoder] = None
+        # fleet verify hook: (payload, draft) -> Optional[List[int]], a
+        # KV snapshot shipped to a verifier racing the local verify;
+        # None or an exception means local only
+        self._spec_remote_verify = None
+        if self.ecfg.speculation:
+            self.enable_speculation(self.ecfg.speculation)
         self.waiting: Deque[RequestState] = collections.deque()
         self._prefill_queue: Deque[RequestState] = collections.deque()
         self._prefill_skips: Dict[str, int] = {}
@@ -156,7 +185,9 @@ class LLMEngine:
         self._bt_version = None
         self._counts = {"prefills": 0, "prefill_chunks": 0,
                         "decode_bursts": 0, "decode_steps": 0,
-                        "paged_decode_steps": 0, "preemptions": 0}
+                        "paged_decode_steps": 0, "preemptions": 0,
+                        "verify_steps": 0, "draft_prefills": 0,
+                        "injected": 0}
 
     # --- public API ---
 
@@ -166,8 +197,7 @@ class LLMEngine:
                     model_id: Optional[str] = None) -> str:
         if not prompt_tokens:
             raise ValueError("empty prompt")
-        if model_id is not None:
-            raise ValueError("model_id requires LoRA, which is not ported")
+        self._check_model_id(model_id)
         if len(prompt_tokens) >= self.ecfg.max_seq_len:
             raise ValueError(
                 f"prompt length {len(prompt_tokens)} >= max_seq_len "
@@ -175,10 +205,32 @@ class LLMEngine:
         rid = request_id or f"req-{next(self._id)}"
         state = RequestState(rid, list(prompt_tokens),
                              params or SamplingParams(),
-                             arrival_t=time.perf_counter())
+                             arrival_t=time.perf_counter(),
+                             model_id=model_id)
         self.waiting.append(state)
         self.requests[rid] = state
         return rid
+
+    def _check_model_id(self, model_id: Optional[str]) -> None:
+        if model_id is None:
+            return
+        if self.lora_pool is None:
+            raise ValueError("model_id requires EngineConfig.lora_rank > 0")
+        self.lora_pool.slot_of(model_id)   # validate at submission
+
+    def enable_speculation(self, spec, draft_params=None) -> None:
+        """Attach a drafter (spec_decode.SpecDecoder). ``spec`` is the
+        ``speculation`` dict or SpecConfig; ``draft_params`` (on the
+        engine's device) override the drafter's random init."""
+        if self.lora_pool is not None:
+            raise ValueError("speculation is incompatible with "
+                             "lora_rank > 0 (drafter has no adapters)")
+        self.spec = SpecDecoder(self.cfg, self.ecfg, spec,
+                                draft_params=draft_params,
+                                device=self.device)
+
+    def disable_speculation(self) -> None:
+        self.spec = None
 
     def abort_request(self, request_id: str) -> None:
         state = self.requests.get(request_id)
@@ -383,12 +435,16 @@ class LLMEngine:
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :L] = seq
         seed, temp, top_k, top_p, greedy = self._sampling_arrays([state])
+        lora = None
+        if self.lora_pool is not None:
+            lora = self.lora_pool.select(
+                [self.lora_pool.slot_of(state.model_id)])
         toks, _, _ = prefill_sample(
             self.params, self.cache.k, self.cache.v, self._to_device(tokens),
             self._to_device(np.asarray([L], np.int32)),
             self._to_device(self.seq_table.block_tables[
                 state.slot:state.slot + 1]),
-            self.cos, self.sin, seed, temp, top_k, top_p, cfg=self.cfg,
+            self.cos, self.sin, seed, temp, top_k, top_p, lora, cfg=self.cfg,
             greedy=greedy)
         self._counts["prefills"] += 1
         state.ctx_len = L
@@ -430,6 +486,8 @@ class LLMEngine:
         back at the head of the waiting queue; its tokens so far
         re-prefill on readmission."""
         self._counts["preemptions"] += 1
+        if self.spec is not None:
+            self.spec.drop(state.slot)   # drafter KV dies with the pages
         self.allocator.free(self.seq_table.pages_of(state.slot))
         self.seq_table.clear(state.slot)
         self.slots[state.slot] = None
@@ -480,6 +538,10 @@ class LLMEngine:
             self._preempt(victim)
 
     def _run_decode(self) -> List[StepOutput]:
+        if self.spec is not None:
+            outs = self._run_spec_decode()
+            if outs is not None:
+                return outs
         B = self.ecfg.max_num_seqs
         K = self._burst_width()
         for s in [s for s in self.slots
@@ -500,6 +562,12 @@ class LLMEngine:
             active[s.slot] = True
         seed, temp, top_k, top_p, greedy = self._sampling_arrays(
             self.slots, advance=K)
+        lora = None
+        if self.lora_pool is not None:
+            ids = [0] * B
+            for s in active_states:
+                ids[s.slot] = self.lora_pool.slot_of(s.model_id)
+            lora = self.lora_pool.select(ids)
         span = self._active_span()
         use_paged = self._paged_kernel or (
             self._paged_min_pages > 0 and span >= self._paged_min_pages)
@@ -507,7 +575,7 @@ class LLMEngine:
             self.params, self.cache.k, self.cache.v,
             self._to_device(tokens), self._to_device(positions),
             self._bt(span), self._to_device(active), self.cos, self.sin,
-            seed, temp, top_k, top_p, cfg=self.cfg, n_steps=K,
+            seed, temp, top_k, top_p, lora, cfg=self.cfg, n_steps=K,
             paged_kernel=use_paged, greedy=greedy)
         self._counts["decode_bursts"] += 1
         self._counts["decode_steps"] += K
@@ -522,6 +590,182 @@ class LLMEngine:
                 if s.finished:
                     break
         return outs
+
+    # --- speculative decoding (spec_decode.py) ---
+
+    def _spec_eligible(self, s: RequestState) -> bool:
+        """Greedy-only speculation: accept-prefix reproduces the greedy
+        oracle exactly. Sampled and LoRA requests ride the same verify
+        window at position 0 only, undrafted."""
+        return s.params.temperature == 0.0 and s.model_id is None
+
+    def _run_spec_decode(self) -> Optional[List[StepOutput]]:
+        """One draft+verify round over the slot batch: the drafter
+        proposes k tokens per eligible slot, verify_step scores every
+        slot's window in one forward (undrafted slots are a 1-token
+        window and advance one token) and accept-prefix emits 1..k+1
+        tokens per drafted slot. None when no slot can draft this round
+        (the caller runs the plain decode burst)."""
+        spec = self.spec
+        kd = spec.k
+
+        def can_draft(s: RequestState) -> bool:
+            # the window [p .. p+k] must fit under max_seq_len, and a
+            # request one token from its budget gains nothing
+            return (self._spec_eligible(s)
+                    and s.ctx_len + kd <= self.ecfg.max_seq_len - 1
+                    and s.params.max_tokens - len(s.output) >= 2)
+
+        if not any(s is not None and s.ctx_len > 0 and can_draft(s)
+                   for s in self.slots):
+            return None
+        # provision first: it may preempt victims, so the drafted and
+        # active sets are derived afterwards
+        for s in [s for s in self.slots
+                  if s is not None and s.ctx_len > 0]:
+            if s.slot < 0:
+                continue  # preempted as a victim earlier this round
+            self._provision_pages(
+                s, s.ctx_len + (kd + 1 if can_draft(s) else 1))
+        active_states = [s for s in self.slots
+                         if s is not None and s.ctx_len > 0]
+        if not active_states:
+            return []
+        drafted_states = [s for s in active_states if can_draft(s)]
+        if not drafted_states:
+            return None
+        # lazy drafter warm-up: a slot's first drafted round (or the
+        # first after a drop) prefills the drafter's KV for its sequence
+        for s in drafted_states:
+            if s.slot not in spec.ready:
+                seq = s.prompt + s.output
+                spec.prefill(seq[:s.ctx_len], self.seq_table.block_tables[
+                    s.slot:s.slot + 1])
+                spec.ready.add(s.slot)
+                self._counts["draft_prefills"] += 1
+        span = self._active_span()
+        bt = self._bt(span)
+        items = []
+        for s in drafted_states:
+            seq = s.prompt + s.output
+            p = s.ctx_len
+            items.append((s.slot, seq[p - 1], seq[p], p))
+        drafts = spec.draft(items, bt)
+        # fleet mode: a verifier fed a KV snapshot computes the same
+        # emission, so its result corroborates, never decides
+        remote: Dict[int, List[int]] = {}
+        if self._spec_remote_verify is not None:
+            for s in drafted_states:
+                try:
+                    payload = self.snapshot_kv_request(s.request_id)
+                    res = self._spec_remote_verify(payload, drafts[s.slot])
+                except Exception:  # noqa: BLE001 — the verifier is optional
+                    res = None
+                if res is not None:
+                    remote[s.slot] = [int(t) for t in res]
+        B = self.ecfg.max_num_seqs
+        S = kd + 1
+        tok = np.zeros((B, S), np.int32)
+        pos = np.full((B, S), -1, np.int32)
+        for s in active_states:
+            tok[s.slot, 0] = s.output[-1] if s.output else s.prompt[-1]
+            pos[s.slot, 0] = s.ctx_len
+            d = drafts.get(s.slot)
+            if d:
+                tok[s.slot, 1:1 + len(d)] = d
+                pos[s.slot, 1:1 + len(d)] = (
+                    s.ctx_len + 1 + np.arange(len(d)))
+        seed, temp, top_k, top_p, greedy = self._sampling_arrays(
+            self.slots, advance=1)
+        t0 = time.perf_counter()
+        tgt, samp0, _, _ = verify_step(
+            self.params, self.cache.k, self.cache.v, self._to_device(tok),
+            self._to_device(pos), bt, self.cos, self.sin, seed, temp,
+            top_k, top_p, cfg=self.cfg, greedy=greedy)
+        both = torch.cat([tgt, samp0[:, None]], dim=1).cpu().numpy()
+        spec.verify_times.append(time.perf_counter() - t0)
+        self._counts["verify_steps"] += 1
+        tgt, samp0 = both[:, :S], both[:, S]
+        outs: List[StepOutput] = []
+        for s in active_states:
+            if s.slot < 0 or s.finished:
+                continue
+            d = drafts.get(s.slot)
+            if d:
+                emitted = accept_prefix(d, tgt[s.slot].tolist())
+                spec.on_round(len(d), len(emitted) - 1)
+                r = remote.get(s.slot)
+                if r is not None:
+                    spec.remote_rounds_total += 1
+                    if r == emitted:
+                        spec.remote_agree_total += 1
+            else:
+                emitted = [int(samp0[s.slot])]
+            for t in emitted:
+                s.ctx_len += 1
+                outs.append(self._append_token(s, t))
+                if s.finished:
+                    break
+        return outs
+
+    def verify_request(self, request_id: str,
+                       draft: List[int]) -> List[int]:
+        """One verification round for a single request against a draft
+        supplied from outside (the fleet verifier: the draft came from
+        another engine's drafter, the KV through inject_request). Applies
+        and returns the emission, identical to the monolithic round; an
+        empty draft is one plain greedy step. Greedy only; other slots
+        are untouched."""
+        state = self.requests.get(request_id)
+        if state is None:
+            raise ValueError(f"unknown request {request_id!r}")
+        if state.finished or state.slot < 0 or state.ctx_len <= 0:
+            raise ValueError(
+                f"request {request_id!r} is not verifiable "
+                f"(finished={state.finished}, ctx_len={state.ctx_len})")
+        if state.params.temperature != 0.0:
+            raise ValueError("speculative verification is greedy-only")
+        if state.model_id is not None:
+            raise ValueError("speculative verification does not "
+                             "support LoRA requests")
+        draft = [int(t) for t in draft]
+        # clamp the window to the sequence budget, as the monolithic
+        # round's eligibility rule does near max_seq_len
+        while draft and (state.ctx_len + len(draft)
+                         > self.ecfg.max_seq_len - 1):
+            draft.pop()
+        kd = len(draft)
+        self._provision_pages(state, state.ctx_len + kd + 1)
+        B = self.ecfg.max_num_seqs
+        tok = np.zeros((B, kd + 1), np.int32)
+        pos = np.full((B, kd + 1), -1, np.int32)
+        seq = state.prompt + state.output
+        tok[state.slot, 0] = seq[-1]
+        pos[state.slot, 0] = state.ctx_len
+        if kd:
+            tok[state.slot, 1:] = draft
+            pos[state.slot, 1:] = state.ctx_len + 1 + np.arange(kd)
+        seed, temp, top_k, top_p, _g = self._sampling_arrays(
+            self.slots, advance=1)
+        span = self._span_bucket(int(self.seq_table.n_pages[state.slot]))
+        t0 = time.perf_counter()
+        tgt, _s0, _, _ = verify_step(
+            self.params, self.cache.k, self.cache.v, self._to_device(tok),
+            self._to_device(pos), self._bt(span), self.cos, self.sin,
+            seed, temp, top_k, top_p, cfg=self.cfg, greedy=True)
+        row = tgt[state.slot].tolist()
+        self._counts["verify_steps"] += 1
+        if self.spec is not None:
+            self.spec.verify_times.append(time.perf_counter() - t0)
+        emitted = accept_prefix(draft, row)
+        if self.spec is not None and kd:
+            self.spec.on_round(kd, len(emitted) - 1)
+        for t in emitted:
+            state.ctx_len += 1
+            self._append_token(state, t)
+            if state.finished:
+                break
+        return emitted
 
     def _append_token(self, state: RequestState, token: int) -> StepOutput:
         state.output.append(token)
@@ -542,6 +786,8 @@ class LLMEngine:
         state.finished = True
         state.finish_reason = reason
         if state.slot >= 0:
+            if self.spec is not None:
+                self.spec.drop(state.slot)
             self.allocator.free(self.seq_table.pages_of(state.slot))
             self.seq_table.clear(state.slot)
             self.slots[state.slot] = None
@@ -555,17 +801,182 @@ class LLMEngine:
             if stale is not None and stale.finished:
                 del self.requests[old]
 
+    # --- fleet KV plane: prefill -> decode handoff ---
+
+    def export_kv_request(self, request_id: str) -> Dict[str, Any]:
+        """Export a prefilled request's KV pages for decode on another
+        engine (disaggregated prefill/decode). Valid once the request has
+        prefilled (ctx_len > 0). Copies its pages to host memory,
+        finishes it here (reason "handoff", freeing its slot and pages)
+        and returns a payload :meth:`inject_request` accepts."""
+        payload = self.snapshot_kv_request(request_id)
+        self._finish(self.requests[request_id], "handoff")
+        return payload
+
+    def snapshot_kv_request(self, request_id: str) -> Dict[str, Any]:
+        """:meth:`export_kv_request` without the handoff: the request
+        keeps running here. ``k`` and ``v`` are host tensors in the cache
+        dtype, [L, n_pages, page, kvh, hd]."""
+        state = self.requests.get(request_id)
+        if state is None:
+            raise ValueError(f"unknown request {request_id!r}")
+        if state.finished or state.slot < 0 or state.ctx_len <= 0:
+            raise ValueError(
+                f"request {request_id!r} is not exportable "
+                f"(finished={state.finished}, ctx_len={state.ctx_len})")
+        n_kv = self.allocator.pages_needed(state.ctx_len)
+        idx = self._to_device(np.asarray(
+            self.seq_table.pages_of(state.slot)[:n_kv], np.int64))
+        return {
+            "prompt": list(state.prompt),
+            "output": list(state.output),
+            "ctx_len": state.ctx_len,
+            "page_size": self.ecfg.page_size,
+            "model_id": state.model_id,
+            "k": self.cache.k[:, idx].cpu(),
+            "v": self.cache.v[:, idx].cpu(),
+        }
+
+    def _payload_pages(self, a) -> Optional[torch.Tensor]:
+        """A payload's page array as a tensor this engine can land: a
+        floating tensor on the CPU or on the engine's device, or a numpy
+        array of f32 or f16. Anything else (another device, another
+        dtype, not an array) is None."""
+        if isinstance(a, torch.Tensor):
+            ok = a.is_floating_point() and a.device in (
+                torch.device("cpu"), self.device)
+            return a if ok else None
+        if isinstance(a, np.ndarray) and a.dtype in (np.float32,
+                                                     np.float16):
+            return torch.tensor(a)   # a copy: the array may be read-only
+        return None
+
+    def inject_request(self, payload: Dict[str, Any],
+                       params: Optional[SamplingParams] = None,
+                       request_id: Optional[str] = None) -> str:
+        """Admit a request whose prompt pass ran on another engine. The
+        shipped pages land in free cache pages and the request joins
+        decode with no prefill here. When they cannot land (no free slot,
+        page-size mismatch, pool pressure, malformed or missing arrays,
+        another dtype or device) the request joins the waiting queue and
+        recomputes its prefill: slower, never wrong."""
+        prompt = [int(t) for t in payload["prompt"]]
+        output = [int(t) for t in payload.get("output") or ()]
+        ctx_len = int(payload["ctx_len"])
+        if not prompt:
+            raise ValueError("empty prompt")
+        if len(prompt) >= self.ecfg.max_seq_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} >= max_seq_len "
+                f"{self.ecfg.max_seq_len}")
+        model_id = payload.get("model_id")
+        self._check_model_id(model_id)
+        rid = request_id or f"req-{next(self._id)}"
+        if rid in self.requests:
+            rid = f"req-{next(self._id)}"
+        state = RequestState(rid, prompt, params or SamplingParams(),
+                             output=output,
+                             arrival_t=time.perf_counter(),
+                             model_id=model_id)
+        self.requests[rid] = state
+        if output and len(output) >= state.params.max_tokens:
+            # already at its token budget: nothing left to decode
+            self._finish(state, "length")
+            return rid
+        k = self._payload_pages(payload.get("k"))
+        v = self._payload_pages(payload.get("v"))
+        usable = (
+            k is not None and v is not None and bool(output)
+            and int(payload.get("page_size", -1)) == self.ecfg.page_size
+            and len(prompt) <= ctx_len < self.ecfg.max_seq_len
+            and k.dim() == 5
+            and tuple(k.shape) == (self.cfg.n_layers, k.shape[1],
+                                   self.ecfg.page_size,
+                                   self.cfg.n_kv_heads,
+                                   self.cfg.head_dim)
+            and tuple(v.shape) == tuple(k.shape)
+            and k.shape[1] >= self.allocator.pages_needed(ctx_len))
+        if not usable or not self._inject_pages(state, k, v, ctx_len):
+            self.waiting.append(state)  # recompute fallback
+        return rid
+
+    def _inject_pages(self, state: RequestState, k, v,
+                      ctx_len: int) -> bool:
+        slot = self._free_slot()
+        if slot < 0:
+            return False
+        n_kv = self.allocator.pages_needed(ctx_len)
+        # headroom for the next decoded token too (as _admit's +1)
+        need = self.allocator.pages_needed(ctx_len + 1)
+        if not self.allocator.can_allocate(need) and self.prefix_cache:
+            self.prefix_cache.evict_for(ctx_len + 1)
+        if not self.allocator.can_allocate(need):
+            return False
+        pages = self.allocator.allocate(need)
+        idx = self._to_device(np.asarray(pages[:n_kv], np.int64))
+        for cache, src in ((self.cache.k, k), (self.cache.v, v)):
+            cache.index_copy_(1, idx, src[:, :n_kv].to(
+                device=self.device, dtype=cache.dtype))
+        self._counts["injected"] += 1
+        state.slot = slot
+        state.ctx_len = ctx_len
+        state.prefill_pos = ctx_len
+        if not state.first_token_t:
+            state.first_token_t = time.perf_counter()
+        self.slots[slot] = state
+        self.seq_table.assign(slot, pages)
+        if self.prefix_cache is not None:
+            # shipped pages warm the prefix cache too: register the
+            # prompt's full pages, as the chunked prefill does
+            keys = PrefixCache.page_keys(state.prompt, self.ecfg.page_size)
+            n_reg = min(len(keys), n_kv)
+            if n_reg > 0:
+                self.prefix_cache.insert(keys[:n_reg], pages[:n_reg])
+                state.prompt_page_keys = keys
+        return True
+
+    # --- LoRA management ---
+
+    def add_lora(self, name: str, adapter=None, *, seed: int = 0) -> None:
+        """Load an adapter into the pool (``adapter`` defaults to a fresh
+        zero-delta init at the engine's rank, from ``seed``)."""
+        if self.lora_pool is None:
+            raise ValueError("engine built without lora_rank")
+        if adapter is None:
+            adapter = init_lora_adapter(self.cfg, self.ecfg.lora_rank,
+                                        seed=seed, dtype=self.cfg.dtype,
+                                        device=self.device)
+        self.lora_pool.add(name, adapter)
+
+    def remove_lora(self, name: str) -> None:
+        if self.lora_pool is None:
+            raise ValueError("engine built without lora_rank")
+        users = [s.request_id for s in self.requests.values()
+                 if s.model_id == name and not s.finished]
+        if users:
+            # removing it mid-flight would fail a later step() for the
+            # whole batch, base-model requests included
+            raise RuntimeError(
+                f"adapter {name!r} is in use by {len(users)} live "
+                f"request(s); drain or abort them first")
+        self.lora_pool.remove(name)
+
     # --- metrics ---
 
     def stats(self) -> Dict[str, Any]:
         """The reference's occupancy stats, plus counts of the device
         work units run so far (each whole-prompt prefill runs the flash
         kernel once per layer; each paged decode step runs the paged
-        kernel once per layer)."""
-        return {
+        kernel once per layer; so does each drafter warm-up prefill,
+        once per drafter layer), and the drafter's counters under
+        "spec"."""
+        out = {
             "running": sum(s is not None for s in self.slots),
             "waiting": len(self.waiting),
             "free_pages": self.allocator.free_pages,
             "total_pages": self.allocator.num_pages - 1,
             **self._counts,
         }
+        if self.spec is not None:
+            out["spec"] = self.spec.stats()
+        return out

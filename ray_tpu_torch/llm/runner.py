@@ -1,5 +1,6 @@
-"""Model runner: prefill, chunked prefill and the fused K-step decode burst
-over the paged KV cache, for the Llama family.
+"""Model runner: prefill, chunked prefill, the fused K-step decode burst
+and the speculative verify window over the paged KV cache, for the Llama
+family, with per-slot LoRA adapters on prefill and decode.
 
 Counterpart of ``ray_tpu/llm/runner.py``. Where the JAX functions donated
 the cache buffers and returned new ones, these update ``cache_k`` /
@@ -23,6 +24,8 @@ Padding lanes and inactive slots write to the dump page 0 explicitly:
 unlike JAX's clamping gathers and dropping scatters, an out-of-range
 index in torch raises or corrupts, so every (page, offset) pair is
 computed in range.
+
+MoE configurations (``n_experts > 0``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -38,14 +41,13 @@ from ..ops import apply_rotary, attention, rms_norm
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import (embed_lookup, is_quantized, logits_matmul,
                          weight_einsum)
+from .lora import lora_delta
 from .sampling import sample_from_logits
 
 
-def _check_supported(cfg: LlamaConfig, lora) -> None:
+def _check_supported(cfg: LlamaConfig) -> None:
     if cfg.n_experts:
         raise NotImplementedError("MoE serving is not ported yet")
-    if lora:
-        raise NotImplementedError("LoRA adapters are not ported yet")
 
 
 def _mlp(h, lp, cfg: LlamaConfig):
@@ -87,10 +89,19 @@ def _write_pages(cache_layer, new, slots):
         cache_layer.dtype)
 
 
-def _qkv(h, lp, cfg):
-    return (weight_einsum("bsd,dhk->bshk", h, lp["wq"]),
-            weight_einsum("bsd,dhk->bshk", h, lp["wk"]),
-            weight_einsum("bsd,dhk->bshk", h, lp["wv"]))
+def _qkv(h, lp, cfg, lora=None, li: int = 0):
+    """q, k, v of one layer; with a ``LoRAPool.select`` selection
+    (``[B, L, ...]``), layer ``li``'s deltas are added to q and v before
+    rotary. An empty or None selection is the base model."""
+    q = weight_einsum("bsd,dhk->bshk", h, lp["wq"])
+    k = weight_einsum("bsd,dhk->bshk", h, lp["wk"])
+    v = weight_einsum("bsd,dhk->bshk", h, lp["wv"])
+    if lora:
+        q = q + lora_delta(h, lora["a_q"][:, li], lora["b_q"][:, li],
+                           lora["scale"], cfg.n_heads, cfg.head_dim)
+        v = v + lora_delta(h, lora["a_v"][:, li], lora["b_v"][:, li],
+                           lora["scale"], cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
 
 
 def _finish_layer(x, o, lp, cfg):
@@ -104,10 +115,11 @@ def prefill(params, cache_k, cache_v, tokens, prompt_lens, block_tables,
             cos, sin, lora=None, *, cfg: LlamaConfig):
     """Process whole right-padded prompts, fill their pages, return the
     last valid token's logits. tokens [B, S]; prompt_lens [B];
-    block_tables [B, Pmax]. Attention is ``ops.attention`` (the flash
-    kernel on the card). Returns (logits [B, vocab] f32, cache_k,
-    cache_v), the caches updated in place."""
-    _check_supported(cfg, lora)
+    block_tables [B, Pmax]. ``lora``: the per-row adapters of
+    ``LoRAPool.select`` (None or empty: the base model). Attention is
+    ``ops.attention`` (the flash kernel on the card). Returns (logits
+    [B, vocab] f32, cache_k, cache_v), the caches updated in place."""
+    _check_supported(cfg)
     B, S = tokens.shape
     dev = tokens.device
     page_size = cache_k.shape[2]
@@ -118,7 +130,7 @@ def prefill(params, cache_k, cache_v, tokens, prompt_lens, block_tables,
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = _qkv(h, lp, cfg, lora, li)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         _write_pages(cache_k[li], k, slots)
@@ -149,7 +161,7 @@ def prefill_chunk(params, cache_k, cache_v, tokens, start_pos: int,
     [start_pos, start_pos + chunk_len); they attend causally within the
     chunk and over the pages earlier chunks wrote. Returns (logits
     [1, vocab] of the chunk's last valid token, cache_k, cache_v)."""
-    _check_supported(cfg, None)
+    _check_supported(cfg)
     B, C = tokens.shape
     dev = tokens.device
     n_pool, page_size = cache_k.shape[1], cache_k.shape[2]
@@ -193,6 +205,70 @@ def prefill_chunk(params, cache_k, cache_v, tokens, start_pos: int,
     x_last = x[:, max(chunk_len - 1, 0)]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
     return _lm_logits(x_last, params, cfg), cache_k, cache_v
+
+
+@torch.inference_mode()
+def verify_step(params, cache_k, cache_v, tokens, positions, block_tables,
+                cos, sin, seed, temperature, top_k, top_p, *,
+                cfg: LlamaConfig, greedy: bool = False):
+    """Batched multi-token verification forward (speculative decoding):
+    score a whole draft window in one forward over the paged cache.
+
+    tokens [B, S] are the window tokens (a row is [last emitted, d_1 ..
+    d_k]); positions [B, S] their absolute positions, -1 for padding
+    (shorter windows, undrafted slots), whose writes go to the dump page.
+    Every valid window token's K/V is written first; attention then
+    gathers the row's pages and masks by key_pos <= query_pos, so the
+    window sees its own keys through the pages, and stale rows of an
+    earlier rejected window (positions above every query) never score.
+    Table columns past a row's provisioned span point at page 0; their
+    key positions too lie above every query.
+
+    Returns (argmax tokens [B, S] (index j predicts the token after
+    window position j), the position-0 token [B], sampled unless
+    ``greedy``, cache_k, cache_v), the caches updated in place.
+    """
+    _check_supported(cfg)
+    B, S = tokens.shape
+    dev = tokens.device
+    n_pool, page_size = cache_k.shape[1], cache_k.shape[2]
+    Sall = block_tables.shape[1] * page_size
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // kvh
+    scale = hd ** -0.5
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    qpos = positions.long().clamp_min(0)                       # [B, S]
+    kmask = (torch.arange(Sall, device=dev)[None, None, :]
+             <= qpos[:, :, None])                              # [B, S, Sall]
+    slots = _page_slots(block_tables, positions, page_size)
+    bt = block_tables.long().clamp(0, n_pool - 1)
+    for li in range(cfg.n_layers):
+        lp = layer_params(params["layers"], li)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = apply_rotary(q, cos, sin, positions=qpos)
+        k = apply_rotary(k, cos, sin, positions=qpos)
+        ck, cv = cache_k[li], cache_v[li]
+        _write_pages(ck, k, slots)
+        _write_pages(cv, v, slots)
+        pk = ck[bt].reshape(B, Sall, kvh, hd)
+        pv = cv[bt].reshape(B, Sall, kvh, hd)
+        qg = q.reshape(B, S, kvh, rep, hd).float()
+        s = torch.einsum("bsgrd,btgd->bsgrt", qg, pk.float())
+        s = torch.where(kmask[:, :, None, None, :], s * scale, -torch.inf)
+        p = torch.softmax(s, dim=-1).to(pk.dtype).float()
+        o = torch.einsum("bsgrt,btgd->bsgrd", p, pv.float())
+        o = o.reshape(B, S, cfg.n_heads, hd).to(x.dtype)
+        x = _finish_layer(x, o, lp, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _lm_logits(x, params, cfg)                        # [B, S, V]
+    tgt = logits.argmax(dim=-1)
+    if greedy:
+        samp0 = tgt[:, 0]
+    else:
+        samp0 = sample_from_logits(logits[:, 0], seed, temperature, top_k,
+                                   top_p)
+    return tgt, samp0, cache_k, cache_v
 
 
 def sample_logits(logits, seed, temperature, top_k, top_p):
@@ -254,9 +330,12 @@ def decode_burst(params, cache_k, cache_v, tokens, positions,
     dump page 0. The host must have provisioned pages for
     positions .. positions + n_steps - 1.
 
+    ``lora`` is a ``LoRAPool.select`` selection for the B rows, on both
+    attention paths.
+
     Returns (tokens [n_steps, B], cache_k, cache_v).
     """
-    _check_supported(cfg, lora)
+    _check_supported(cfg)
     use_paged = (global_config().llm_paged_kernel if paged_kernel is None
                  else paged_kernel)
     B = tokens.shape[0]
@@ -288,7 +367,7 @@ def decode_burst(params, cache_k, cache_v, tokens, positions,
         for li in range(L):
             lp = layer_params(params["layers"], li)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k, v = _qkv(h, lp, cfg)
+            q, k, v = _qkv(h, lp, cfg, lora, li)
             q = apply_rotary(q, cos, sin, positions=pos_i)[:, 0]
             k = apply_rotary(k, cos, sin, positions=pos_i)[:, 0]
             scratch_k[li, :, i] = k.to(scratch_k.dtype)

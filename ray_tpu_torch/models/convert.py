@@ -1,5 +1,5 @@
-"""Carry a ``ray_tpu`` parameter tree (and its optax AdamW state) into
-the port, and a port tree back out as numpy.
+"""Carry a ``ray_tpu`` parameter tree (and its optax AdamW state, and its
+LoRA adapters) into the port, and a port tree back out as numpy.
 
 The input is the JAX tree with its leaves already turned into numpy
 arrays (``jax.tree.map(np.asarray, params)``), so this module needs
@@ -40,6 +40,17 @@ def params_from_jax(tree, device=None):
         return _leaf(node, dev)
 
     return walk(tree)
+
+
+def lora_from_jax(adapter, device=None):
+    """A ``ray_tpu`` LoRA adapter (``ray_tpu.llm.lora.init_lora_adapter``'s
+    dict with numpy leaves) -> the port's adapter dict: ``a_q``, ``b_q``,
+    ``a_v`` and ``b_v`` as tensors on ``device`` (default: the CUDA card)
+    in their own dtype, ``scale`` as a float."""
+    dev = resolve_device(device)
+    out = {k: _leaf(adapter[k], dev) for k in ("a_q", "b_q", "a_v", "b_v")}
+    out["scale"] = float(np.asarray(adapter.get("scale", 1.0)))
+    return out
 
 
 def _find_adam_state(node):

@@ -233,6 +233,96 @@ def test_engine_on_card_matches_cpu(gen):
         assert (flash_attention.launches > f0) == (chunk == 0)
 
 
+_SERVE_CFG = LlamaConfig(vocab=512, dim=256, n_layers=2, n_heads=2,
+                         n_kv_heads=1, mlp_dim=512, max_seq=256,
+                         dtype=torch.float32, remat=False)
+
+
+def _to(params, dev):
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def test_verify_step_and_lora_burst_on_card_match_cpu(gen):
+    """f32, the same weights and cache state on the card and the CPU:
+    verify_step's argmax over a padded window batch, and a LoRA decode
+    burst through the paged kernel, give the same tokens."""
+    from ray_tpu_torch.llm import LoRAPool, init_lora_adapter, runner
+    from ray_tpu_torch.ops import rope_frequencies
+
+    cfg = _SERVE_CFG
+    params = init_params(cfg, seed=2, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    shape = (cfg.n_layers, 16, 16, cfg.n_kv_heads, cfg.head_dim)
+    caches = [torch.randn(shape, generator=g) for _ in range(2)]
+    bt = torch.tensor([[3, 7, 1, 9], [11, 2, 5, 0], [4, 0, 0, 0]],
+                      dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (3, 4), generator=g)
+    pos = torch.tensor([[30, 31, 32, 33], [40, 41, -1, -1],
+                        [9, -1, -1, -1]], dtype=torch.int32)
+    samp = (torch.zeros(3), torch.zeros(3, dtype=torch.int32),
+            torch.ones(3))
+    pool = LoRAPool(cfg, 4, 2, dtype=cfg.dtype, device="cpu")
+    adapter = init_lora_adapter(cfg, 4, seed=3, dtype=cfg.dtype,
+                                device="cpu")
+    adapter["b_q"] = torch.randn(adapter["b_q"].shape, generator=g) * 0.3
+    adapter["b_v"] = torch.randn(adapter["b_v"].shape, generator=g) * 0.3
+    pool.add("a", adapter)
+    sel = pool.select([pool.slot_of("a"), 0, pool.slot_of("a")])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                    cfg.rope_theta, device=dev)
+        p = _to(params, dev)
+        ck, cv = (c.to(dev, copy=True) for c in caches)
+        tgt, s0, _, _ = runner.verify_step(
+            p, ck, cv, toks.to(dev), pos.to(dev), bt.to(dev), cos, sin, 0,
+            *(x.to(dev) for x in samp), cfg=cfg, greedy=True)
+        p0 = paged_decode_attention.launches
+        burst, _, _ = runner.decode_burst(
+            p, ck, cv, toks[:, 0].to(dev),
+            torch.tensor([34, 42, 10], dtype=torch.int32, device=dev),
+            bt.to(dev), torch.ones(3, dtype=torch.bool, device=dev), cos,
+            sin, 0, *(x.to(dev) for x in samp), _to(sel, dev), cfg=cfg,
+            n_steps=4, paged_kernel=True, greedy=True)
+        if dev == "cuda":
+            assert paged_decode_attention.launches == p0 + 4 * cfg.n_layers
+        valid = pos >= 0
+        out[dev] = (tgt.cpu()[valid].tolist(), s0.cpu().tolist(),
+                    burst.cpu().tolist())
+    assert out["cuda"] == out["cpu"]
+
+
+def test_bf16_kv_payload_round_trips_bit_equal_on_card(gen):
+    """snapshot_kv_request gives host bf16 tensors; inject_request lands
+    them on another engine's card cache bit for bit, and the request
+    joins decode with no prefill."""
+    cfg = LlamaConfig(vocab=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, mlp_dim=512, max_seq=256,
+                      dtype=torch.bfloat16, remat=False)
+    params = init_params(cfg, seed=4, device="cuda")
+    ecfg = EngineConfig(max_num_seqs=2, page_size=16, num_pages=32,
+                        max_seq_len=128, decode_burst=4)
+    sp = SamplingParams(temperature=0.0, max_tokens=6)
+    pre = LLMEngine(params, cfg, ecfg, device="cuda")
+    rid = pre.add_request(list(range(1, 40)), sp)
+    while not pre.step(skip_decode=True):
+        pass
+    pages = pre.seq_table.pages_of(pre.requests[rid].slot)[:3]
+    want = (pre.cache.k[:, pages].cpu(), pre.cache.v[:, pages].cpu())
+    payload = pre.export_kv_request(rid)
+    assert payload["k"].device.type == "cpu"
+    assert payload["k"].dtype == torch.bfloat16
+    dec = LLMEngine(params, cfg, ecfg, device="cuda")
+    new = dec.inject_request(payload, sp)
+    got = dec.seq_table.pages_of(dec.requests[new].slot)[:3]
+    assert torch.equal(dec.cache.k[:, got].cpu(), want[0])
+    assert torch.equal(dec.cache.v[:, got].cpu(), want[1])
+    while dec.has_unfinished():
+        dec.step()
+    assert len(dec.requests[new].output) == 6
+    assert dec.stats()["prefills"] == 0 and dec.stats()["injected"] == 1
+
+
 def _bwd_args(gen, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
     q = _randn(gen, (B, Sq, Hq, D), dtype)
     k = _randn(gen, (B, Skv, Hkv, D), dtype)

@@ -387,13 +387,25 @@ def test_engine_abort_frees_pages(weights):
 
 
 def test_engine_refuses_what_is_not_ported(weights):
+    """MoE is the one configuration still refused as not ported; the
+    reference's own guards raise ValueError on both packages."""
+    import dataclasses
+
     base = dict(max_num_seqs=2, page_size=4, num_pages=32, max_seq_len=32)
     with pytest.raises(NotImplementedError):
-        LLMEngine(weights[1], CFG, EngineConfig(lora_rank=4, **base),
-                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        LLMEngine(weights[1], CFG, EngineConfig(
-            speculation={"num_draft_tokens": 2}, **base), device="cpu")
+        LLMEngine(weights[1], dataclasses.replace(CFG, n_experts=4),
+                  EngineConfig(**base), device="cpu")
+    spec = {"draft_config": "tiny", "num_draft_tokens": 2}
+    for bad in (dict(lora_rank=4, enable_prefix_caching=True),
+                dict(lora_rank=4, prefill_chunk=8),
+                dict(lora_rank=4, speculation=spec),
+                dict(speculation={"draft_config": "no-such-model"}),
+                dict(speculation={"num_draft_tokens": 2})):
+        with pytest.raises(ValueError):
+            LLMEngine(weights[1], CFG, EngineConfig(**base, **bad),
+                      device="cpu")
+        with pytest.raises(ValueError):
+            JLLMEngine(weights[0], JCFG, JEngineConfig(**base, **bad))
     eng = LLMEngine(weights[1], CFG, EngineConfig(**base), device="cpu")
     with pytest.raises(ValueError):
         eng.add_request([1, 2], model_id="adapter")
