@@ -31,17 +31,29 @@ Phases, one JSON line each on stdout:
                "full") trained by make_train_step with AdamW at B=1,
                S=2048: one warm-up step, then 3 timed steps on one batch;
                checks the loss falls, the launch counts, the peak memory.
-  6. reference - a small f32 model served, then trained 3 steps, on the
+  6. moe     - Mixtral-8x7B widths (bf16, seed 7) at 16 of its 32 layers
+               served like the engine phase, 32 tokens a request: launch
+               counts, decode tokens against a fresh prefill of each prefix,
+               paged vs gather decode.
+     moe_train - the same widths at 2 layers trained 1+3 steps (B=1,
+               S=2048): the loss falls, aux finite, routers stay f32.
+     mamba   - Mamba-2 130m and Jamba 350m (full size, bf16) trained 1+3
+               steps at B=4, S=2048: the loss falls, gradients finite,
+               Jamba's attention through all three flash kernels.
+  7. reference - a small f32 model served, then trained 3 steps, on the
                card and on the CPU from the same weights: identical greedy
                streams (plain, speculative in both regimes, LoRA, export ->
-               inject), and the same losses and params.
-  7. timing  - kernel, plain-version and library times, and the bound.
+               inject), and the same losses and params; the same with 4
+               experts (plain, chunked and gather streams, training), and
+               a small f32 Jamba trained.
+  8. timing  - kernel, plain-version and library times, and the bound.
 A comma-separated list of phases runs only those and prints no result;
-`profile` and `profile_train` (not in the default run) trace, with
-torch.profiler, one 511-token prefill and a decode burst at B=8 and at
-8k context of the 8B engine, and one 8B training step:
+`profile`, `profile_train` and `profile_moe` (not in the default run)
+trace, with torch.profiler, one 511-token prefill and a decode burst at
+B=8 and at 8k context of the 8B engine, one 8B training step, and a
+prefill and a decode burst of the moe phase's engine:
 
-    python3 chip_smoke.py build,profile,profile_train
+    python3 chip_smoke.py build,profile,profile_train,profile_moe
 The line before the last is the `kernels` line; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -161,6 +173,8 @@ FLASH_CASES = [
     ("8b_prefill", 1, 512, 512, 32, 8, 128, True, "bf16", False),
     ("8b_train", 1, 2048, 2048, 32, 8, 128, True, "bf16", False),
     ("8b_batched_prefill", 8, 512, 512, 32, 8, 128, True, "bf16", False),
+    # the mamba phase's Jamba-350m step: 2,047 tokens padded to 2,048
+    ("jamba_350m_train", 4, 2048, 2048, 8, 4, 128, True, "bf16", False),
     ("sq_lt_skv", 1, 128, 384, 8, 2, 128, True, "bf16", False),
     ("sq_gt_skv", 2, 96, 64, 4, 2, 128, True, "bf16", False),
     ("odd_tiles", 1, 320, 320, 8, 2, 128, True, "bf16", False),
@@ -176,6 +190,7 @@ FLASH_CASES = [
 BWD_CASES = [
     # name, B, Sq, Skv, Hq, Hkv, D, causal, dtype
     ("8b_train", 1, 2048, 2048, 32, 8, 128, True, "bf16"),
+    ("jamba_350m_train", 4, 2048, 2048, 8, 4, 128, True, "bf16"),
     ("sq_lt_skv", 1, 128, 384, 8, 2, 128, True, "bf16"),
     ("ragged_100", 2, 100, 100, 4, 2, 128, True, "bf16"),
     ("sq_gt_skv", 2, 96, 64, 4, 2, 128, True, "bf16"),
@@ -492,18 +507,23 @@ def _serving_prompts(torch, vocab):
             for n in SERVE_LENS]
 
 
-def phase_engine(torch):
+def _serve(torch, cfg, params, n_tokens):
+    """The engine phase's serving run of ``params`` under SERVE_ECFG: a
+    warm-up request, the TTFT of the 511-token prompt on an idle engine,
+    the other 7 prompts, timed full decode bursts at B=8, every request
+    to ``n_tokens`` greedy tokens; then a chunked-prefill engine (chunk
+    256) serving the 511-token prompt. Emits the `engine_counts` line
+    and checks flash_fwd's and paged_decode's launch counts, zeroed
+    before the run. Returns (the first engine, the prompts, the streams
+    in prompt order, the launches, the metrics)."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
-    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
     from ray_tpu_torch.ops.attention import flash_attention
     from ray_tpu_torch.ops.paged_attention import paged_decode_attention
 
-    cfg = LLAMA_CONFIGS["8b"]
-    params, init_s = _serving_params(torch)
     engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG),
                        device="cuda")
     prompts = _serving_prompts(torch, cfg.vocab)
-    sp = SamplingParams(temperature=0.0, max_tokens=64)
+    sp = SamplingParams(temperature=0.0, max_tokens=n_tokens)
 
     # warm-up request (cuBLAS handles, allocator), not counted
     engine.generate([prompts[0][:16]], SamplingParams(temperature=0.0,
@@ -539,13 +559,12 @@ def phase_engine(torch):
     torch.cuda.synchronize()
     for i in ids:
         st = engine.requests[i]
-        require(st.finished and len(st.output) == 64
+        require(st.finished and len(st.output) == n_tokens
                 and st.finish_reason == "length",
-                f"request {i} did not finish with 64 tokens")
+                f"request {i} did not finish with {n_tokens} tokens")
         require(all(0 <= t < cfg.vocab for t in st.output),
                 f"request {i} produced out-of-range tokens")
-    # the greedy streams in prompt order, for the later serving phases
-    _SERVING["streams"] = [engine.requests[i].output for i in ids]
+    streams = [engine.requests[i].output for i in ids]
 
     # a second engine on the same params: chunked prefill, one request
     eng2 = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG,
@@ -553,12 +572,7 @@ def phase_engine(torch):
                      device="cuda")
     out2 = eng2.generate([prompts[-1]], sp)[0]
     torch.cuda.synchronize()
-    require(len(out2) == 64, "chunked-prefill request did not finish")
-    same_prefix = 0
-    for a, b in zip(out2, engine.requests[rid].output):
-        if a != b:
-            break
-        same_prefix += 1
+    require(len(out2) == n_tokens, "chunked-prefill request did not finish")
 
     s1, s2 = engine.stats(), eng2.stats()
     counts = {k: s1[k] - before[k] + s2[k] for k in (
@@ -578,25 +592,39 @@ def phase_engine(torch):
             "a decode burst did not take the paged kernel")
     require(flash_attention.launches == want_flash,
             "flash_fwd launches differ from n_layers per prefill")
-    # every 8B prefill (bf16, head_dim 128) on the tensor-core kernel
+    # every bf16, head_dim-128 prefill on the tensor-core kernel
     require(flash_attention.launches_tc == want_flash,
-            "an 8B flash_fwd launch did not take the tensor-core kernel")
+            "a flash_fwd launch did not take the tensor-core kernel")
     require(paged_decode_attention.launches == want_paged > 0,
             "paged_decode launches differ from n_layers * K per burst")
     launches = {"flash_fwd": flash_attention.launches,
                 "paged_decode": paged_decode_attention.launches}
+    metrics = {"ttft_511_ms": ttft_s * 1e3,
+               "decode_tok_s_b8": decode_tokens / dt,
+               "decode_tokens": decode_tokens, "decode_bursts": n_bursts,
+               "chunked_vs_whole_same_prefix": _same_prefix(
+                   out2, engine.requests[rid].output)}
+    del eng2
+    return engine, prompts, streams, launches, metrics
 
+
+def phase_engine(torch):
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    cfg = LLAMA_CONFIGS["8b"]
+    params, init_s = _serving_params(torch)
+    engine, prompts, streams, launches, metrics = _serve(torch, cfg, params,
+                                                         64)
+    # the greedy streams in prompt order, for the later serving phases
+    _SERVING["streams"] = streams
     # paged vs gather decode: one identical cache state, first token
     first = _paged_vs_gather(torch, engine, params, cfg, prompts)
-    tok_s = decode_tokens / dt
     emit({"phase": "engine", "model": "llama3-8b", "dtype": "bf16",
-          "n_layers": L, "requests": 9, "init_s": round(init_s, 3),
-          "ttft_511_ms": ttft_s * 1e3, "decode_tok_s_b8": tok_s,
-          "decode_tokens": decode_tokens, "decode_bursts": n_bursts,
-          "chunked_vs_whole_same_prefix": same_prefix,
+          "n_layers": cfg.n_layers, "requests": 9,
+          "init_s": round(init_s, 3), **metrics,
           "paged_vs_gather_first_token": first,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    del engine, eng2
+    del engine
     return launches
 
 
@@ -1069,18 +1097,13 @@ def _build_8b_trainer(torch):
     return cfg, state, step_fn, batch
 
 
-def phase_train(torch):
-    """The training path at full width and depth: 1 warm-up step, then 3
-    timed steps on the same batch."""
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cfg, state, step_fn, batch = _build_8b_trainer(torch)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+def _timed_steps(torch, step_fn, state, batch, tokens_per_step):
+    """One warm-up step, then the launch counts zeroed and 3 timed steps
+    on the same batch. Returns (state, losses and grad norms of all 4
+    steps, step ms, tok/s, the 3 steps' launches, the last metrics)."""
     state, m = step_fn(state, batch)
     torch.cuda.synchronize()
     losses, norms = [m["loss"].item()], [m["grad_norm"].item()]
-
     _zero_counts()
     step_ms = []
     for _ in range(3):
@@ -1091,43 +1114,282 @@ def phase_train(torch):
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
     counts = _train_counts()
-    L, steps = cfg.n_layers, 3
-    # every launch of the bf16, head_dim-128 step on tensor cores
-    per_run = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-               "flash_bwd_dkv": L * steps}
-    want = {**per_run, **{k + "_tc": n for k, n in per_run.items()}}
-    peak = torch.cuda.max_memory_allocated()
-    total = torch.cuda.get_device_properties(0).total_memory
     mean_ms = sum(step_ms) / len(step_ms)
-    tok_s = TRAIN_B * TRAIN_S / (mean_ms / 1e3)
+    return (state, losses, norms, step_ms,
+            tokens_per_step / (mean_ms / 1e3), counts, m)
+
+
+def _want_train_counts(n_attn, tc=True, steps=3):
+    """Launches of ``steps`` remat'd steps of ``n_attn`` attention layers:
+    the forward twice (forward, recompute), each backward once; all on
+    tensor cores, or none."""
+    per_run = {"flash_fwd": 2 * n_attn * steps,
+               "flash_bwd_dq": n_attn * steps,
+               "flash_bwd_dkv": n_attn * steps}
+    return {**per_run, **{k + "_tc": n if tc else 0
+                          for k, n in per_run.items()}}
+
+
+def _check_training(torch, losses, norms, counts, want, m):
+    """The loss falls, every loss and grad norm is finite (a NaN or inf in
+    any gradient makes the norm non-finite), the launches are as
+    expected, the peak fits the card and 4 steps were taken."""
+    require(all(math.isfinite(x) for x in losses + norms),
+            "a loss or grad norm is not finite")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    require(counts == want, f"train launches {counts}, expected {want}")
+    require(torch.cuda.max_memory_allocated()
+            < torch.cuda.get_device_properties(0).total_memory,
+            "peak memory exceeds the card")
+    require(int(m["step"]) == 4, "the step counter is not 4")
+
+
+def phase_train(torch):
+    """The training path at full width and depth: 1 warm-up step, then 3
+    timed steps on the same batch."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, state, step_fn, batch = _build_8b_trainer(torch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, losses, norms, step_ms, tok_s, counts, m = _timed_steps(
+        torch, step_fn, state, batch, TRAIN_B * TRAIN_S)
+    L = cfg.n_layers
+    # every launch of the bf16, head_dim-128 step on tensor cores
+    want = _want_train_counts(L)
     flops_per_token = step_fn.model_flops_per_token
     emit({"phase": "train", "model": "llama3-8b", "dtype": "bf16",
           "n_layers": L, "remat": cfg.remat_policy, "batch": TRAIN_B,
           "seq": TRAIN_S, "optimizer": "adamw(3e-4, weight_decay=0.1)",
           "init_s": init_s, "loss": losses, "grad_norm": norms,
-          "step_ms": step_ms, "mean_step_ms": mean_ms, "tok_s": tok_s,
-          "model_flops_per_token": flops_per_token,
+          "step_ms": step_ms, "mean_step_ms": sum(step_ms) / 3,
+          "tok_s": tok_s, "model_flops_per_token": flops_per_token,
           "mfu": flops_per_token * tok_s / BF16_FLOPS,
-          "peak_mem_gb": peak / 1e9, "card_mem_gb": total / 1e9,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card_mem_gb":
+              torch.cuda.get_device_properties(0).total_memory / 1e9,
           "launches": counts, "expected_launches": want,
           "step": int(m["step"])})
-    require(all(math.isfinite(x) for x in losses + norms),
-            "a loss or grad norm is not finite")
-    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    require(counts == want, f"train launches {counts}, expected {want}")
-    require(peak < total, "peak memory exceeds the card")
-    require(int(m["step"]) == 4, "the step counter is not 4")
+    _check_training(torch, losses, norms, counts, want, m)
     return counts
+
+
+# --- the other single-device families: MoE Llama, Mamba-2, Jamba ------------
+
+MOE_SERVE_LAYERS = 16     # of Mixtral-8x7B's 32: bf16 full depth is 93.4 GB
+MOE_TRAIN_LAYERS = 2
+MAMBA_B, MAMBA_S = 4, 2048
+
+
+def _mixtral_cfg(torch, n_layers):
+    """Mixtral-8x7B's widths, from mistralai/Mixtral-8x7B-v0.1's
+    config.json (vocab_size 32000, hidden_size 4096, 32 attention heads,
+    8 key-value heads, intermediate_size 14336, 8 local experts, 2 per
+    token, rope_theta 1e6, rms_norm_eps 1e-5, max_position_embeddings
+    32768), in bf16, at ``n_layers`` of its 32 layers; remat "full" and
+    capacity factor 2.0 (the config's defaults) for training."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab=32000, dim=4096, n_layers=n_layers, n_heads=32,
+                       n_kv_heads=8, mlp_dim=14336, max_seq=32768,
+                       rope_theta=1e6, norm_eps=1e-5, dtype=torch.bfloat16,
+                       n_experts=8, top_k=2)
+
+
+def _fresh_phase(torch):
+    """Free what earlier phases left cached and start a new peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _decode_vs_prefill(torch, engine, params, cfg, prompts, streams,
+                       picks=(0, 7), n=8):
+    """tests/test_llm.py's MoE oracle at full width: for each picked
+    request, its first ``n`` burst-path tokens (the stream after the
+    prefill's token) against a fresh whole-prompt prefill of each prefix
+    (prompt + stream so far), in a cache of its own. A disagreement is
+    accepted only where the prefill's top-2 logit gap is below 0.05."""
+    from ray_tpu_torch.llm import init_kv_cache, runner
+
+    page, max_len = SERVE_ECFG["page_size"], SERVE_ECFG["max_seq_len"]
+    cache = init_kv_cache(cfg, 1 + max_len // page, page, device="cuda")
+    bt = torch.arange(1, 1 + max_len // page, dtype=torch.int32,
+                      device="cuda")[None]
+    out = []
+    for i in picks:
+        stream = streams[i]
+        row = {"request": i, "prompt_len": len(prompts[i]),
+               "agree_prefix": None, "disagreements": []}
+        for j in range(1, n + 1):
+            prefix = prompts[i] + stream[:j]
+            S = runner.prefill_bucket(len(prefix), max_len)
+            toks = torch.zeros((1, S), dtype=torch.int32)
+            toks[0, :len(prefix)] = torch.tensor(prefix)
+            logits, _, _ = runner.prefill(
+                params, cache.k, cache.v, toks.cuda(),
+                torch.tensor([len(prefix)], dtype=torch.int32,
+                             device="cuda"), bt, engine.cos, engine.sin,
+                cfg=cfg)
+            top = logits[0].topk(2).values
+            gap = float(top[0] - top[1])
+            if int(logits[0].argmax()) != stream[j]:
+                if row["agree_prefix"] is None:
+                    row["agree_prefix"] = j - 1
+                row["disagreements"].append({"token": j, "top2_gap": gap})
+                require(gap < 0.05, f"request {i}: decode token {j} differs "
+                        f"from the prefill's at a top-2 gap of {gap}")
+        if row["agree_prefix"] is None:
+            row["agree_prefix"] = n
+        out.append(row)
+    del cache
+    return out
+
+
+def phase_moe(torch, card):
+    """Mixtral-8x7B widths at 16 layers (bf16, random weights from seed 7)
+    served by LLMEngine on the engine phase's configuration and schedule,
+    32 greedy tokens a request: launch counts, the decode-vs-prefill
+    oracle, and paged vs gather decode on one cache state."""
+    from ray_tpu_torch.models.llama import init_params
+
+    _fresh_phase(torch)
+    cfg = _mixtral_cfg(torch, MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=7, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine, prompts, streams, launches, metrics = _serve(
+        torch, cfg, params, SLICE_TOKENS)
+    oracle = _decode_vs_prefill(torch, engine, params, cfg, prompts,
+                                streams)
+    first = _paged_vs_gather(torch, engine, params, cfg, prompts)
+    emit({"phase": "moe", "model": "mixtral-8x7b widths", "dtype": "bf16",
+          "n_layers": cfg.n_layers, "n_params": cfg.n_params(),
+          "experts": cfg.n_experts, "top_k": cfg.top_k, "requests": 9,
+          "init_s": init_s, **metrics,
+          "note": "16 of 32 layers: host time weighs more than at full "
+                  "depth",
+          "decode_vs_prefill": oracle,
+          "paged_vs_gather_first_token": first,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": card})
+    del engine, params
+    return launches
+
+
+def phase_moe_train(torch, card):
+    """Mixtral-8x7B widths at 2 layers (bf16, seed 7, remat "full",
+    capacity factor 2.0) under make_train_step with adamw(3e-4,
+    weight_decay=0.1), one seeded batch of B=1, S=2048: one warm-up step,
+    3 timed steps. The loss falls, the aux loss is finite, the routers
+    stay f32 and move, and the three flash kernels are launched."""
+    from ray_tpu_torch.models.llama import forward, init_params, lm_loss
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    _fresh_phase(torch)
+    cfg = _mixtral_cfg(torch, MOE_TRAIN_LAYERS)
+    require(cfg.remat and cfg.remat_policy == "full"
+            and cfg.capacity_factor == 2.0, "unexpected MoE train config")
+    t0 = time.perf_counter()
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: lm_loss(p, b, cfg), adamw(3e-4, weight_decay=0.1),
+        device="cuda")
+    state = init_fn(init_params(cfg, seed=7, device="cuda"))
+    g = torch.Generator().manual_seed(7)
+    batch = place_batch({"tokens": torch.randint(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=g, dtype=torch.int32)})
+    routers = [lp["router"].detach().clone() for lp in state.params["layers"]]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, losses, norms, step_ms, tok_s, counts, m = _timed_steps(
+        torch, step_fn, state, batch, TRAIN_B * TRAIN_S)
+    want = _want_train_counts(cfg.n_layers)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = forward(state.params, batch["tokens"], cfg, return_aux=True)
+    after = [lp["router"] for lp in state.params["layers"]]
+    router_f32 = all(r.dtype == torch.float32 for r in after)
+    router_moved = all(not torch.equal(a.detach(), b)
+                       for a, b in zip(after, routers))
+    emit({"phase": "moe_train", "model": "mixtral-8x7b widths",
+          "dtype": "bf16", "n_layers": cfg.n_layers,
+          "n_params": cfg.n_params(), "remat": cfg.remat_policy,
+          "capacity_factor": cfg.capacity_factor, "batch": TRAIN_B,
+          "seq": TRAIN_S, "optimizer": "adamw(3e-4, weight_decay=0.1)",
+          "init_s": init_s, "loss": losses, "grad_norm": norms,
+          "aux_loss": float(aux), "router_f32": router_f32,
+          "router_moved": router_moved, "step_ms": step_ms,
+          "mean_step_ms": sum(step_ms) / 3, "tok_s": tok_s,
+          "peak_mem_gb": peak / 1e9, "launches": counts,
+          "expected_launches": want, "nvidia_smi": card})
+    _check_training(torch, losses, norms, counts, want, m)
+    require(math.isfinite(float(aux)), "the MoE aux loss is not finite")
+    require(router_f32 and router_moved,
+            "a router is not f32 or did not move")
+    return counts
+
+
+def phase_mamba(torch, card):
+    """Mamba-2 130m and the Jamba 350m hybrid (MAMBA_CONFIGS, full width
+    and depth, bf16, seed 7) under make_train_step with adamw(3e-4,
+    weight_decay=0.1), one seeded batch of B=4, S=2048 (the model reads
+    2,047 tokens, padded to 2,048): one warm-up step, 3 timed steps. The
+    loss falls and every gradient is finite; Jamba's 8 attention layers
+    launch the forward (twice: remat per period) and both backward
+    kernels on tensor cores."""
+    from ray_tpu_torch.models.mamba import (MAMBA_CONFIGS, init_mamba,
+                                            mamba_lm_loss)
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    launches = {}
+    for name in ("130m", "jamba_350m"):
+        _fresh_phase(torch)
+        cfg = MAMBA_CONFIGS[name]
+        t0 = time.perf_counter()
+        init_fn, step_fn, place_batch = make_train_step(
+            lambda p, b, cfg=cfg: mamba_lm_loss(p, b, cfg),
+            adamw(3e-4, weight_decay=0.1), device="cuda")
+        state = init_fn(init_mamba(cfg, seed=7, device="cuda"))
+        g = torch.Generator().manual_seed(7)
+        batch = place_batch({"tokens": torch.randint(
+            0, cfg.vocab, (MAMBA_B, MAMBA_S), generator=g,
+            dtype=torch.int32)})
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state, losses, norms, step_ms, tok_s, counts, m = _timed_steps(
+            torch, step_fn, state, batch, MAMBA_B * MAMBA_S)
+        want = _want_train_counts(cfg.n_attn_layers)
+        emit({"phase": "mamba", "model": name, "dtype": "bf16",
+              "n_layers": cfg.n_layers, "attn_layers": cfg.n_attn_layers,
+              "n_params": cfg.n_params(), "batch": MAMBA_B, "seq": MAMBA_S,
+              "optimizer": "adamw(3e-4, weight_decay=0.1)",
+              "init_s": init_s, "loss": losses, "grad_norm": norms,
+              "step_ms": step_ms, "mean_step_ms": sum(step_ms) / 3,
+              "tok_s": tok_s,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": counts, "expected_launches": want,
+              "nvidia_smi": card})
+        _check_training(torch, losses, norms, counts, want, m)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        del state
+    require(launches["flash_bwd_dkv_tc"] > 0,
+            "Jamba launched no flash backward")
+    return launches
 
 
 def phase_reference(torch):
     """End to end against the CPU on a small input: a 2-layer f32 model
-    (head_dim 128, GQA) served, then trained, on the card, through the
-    kernels, and on the CPU, through their plain versions, from the same
-    weights. f32 matmuls on the card run without TF32, so greedy streams
-    must be identical."""
+    (head_dim 128, GQA), dense and with 4 experts, served, then trained,
+    and a small f32 Jamba trained, on the card, through the kernels, and
+    on the CPU, through their plain versions, from the same weights. f32
+    matmuls on the card run without TF32, so greedy streams must be
+    identical."""
+    import dataclasses
+
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
-    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, lm_loss
 
     cfg = LlamaConfig(vocab=1024, dim=512, n_layers=2, n_heads=4,
                       n_kv_heads=2, mlp_dim=1024, max_seq=256,
@@ -1165,7 +1427,73 @@ def phase_reference(torch):
     require(counts["flash_fwd"] > 0 and counts["flash_fwd_tc"] == 0,
             f"reference serving launches {counts}")
     _reference_paths(torch, cfg, params, prompts, sp, streams["cpu", 0])
-    _reference_train(torch, cfg, params)
+    _reference_train(torch, dataclasses.replace(cfg, remat=True,
+                                                remat_policy="full"),
+                     params, lm_loss, cfg.n_layers, "reference_train",
+                     "2-layer f32, head_dim 128")
+    _reference_moe(torch, cfg, prompts, sp)
+    _reference_jamba(torch)
+
+
+def _reference_moe(torch, dense_cfg, prompts, sp):
+    """The reference model with 4 experts, top-2 (f32; `tiny`'s head_dim
+    16 is outside the kernels' 64 and 128): greedy streams of the plain,
+    the chunked-prefill and the gather-decode engine identical on the
+    card and on the CPU, then 3 training steps."""
+    import dataclasses
+
+    from ray_tpu_torch._private.tree import tree_map
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import init_params, lm_loss
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    cfg = dataclasses.replace(dense_cfg, n_experts=4, top_k=2)
+    params = init_params(cfg, seed=6, device="cpu")
+    got = {}
+    _zero_serving_counts()
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        for path, chunk, paged in (("plain", 0, True), ("chunked", 32, True),
+                                   ("gather", 0, False)):
+            eng = LLMEngine(p, cfg, EngineConfig(
+                max_num_seqs=4, page_size=16, num_pages=64, max_seq_len=128,
+                decode_burst=4, prefill_chunk=chunk), device=dev)
+            eng._paged_kernel = paged
+            got[dev, path] = eng.generate(prompts, sp)
+    torch.cuda.synchronize()
+    counts = _serving_counts()
+    same = {path: got["cuda", path] == got["cpu", path]
+            for path in ("plain", "chunked", "gather")}
+    emit({"phase": "reference_moe", "model": "2-layer f32, head_dim 128, "
+          "4 experts, top-2", "requests": len(prompts),
+          "tokens_each": sp.max_tokens,
+          **{f"card_equals_cpu_{k}": v for k, v in same.items()},
+          "paged_equals_gather": got["cuda", "plain"] == got["cuda", "gather"],
+          "launches": counts})
+    require(all(same.values()),
+            f"MoE greedy streams on the card differ from the CPU's: {same}")
+    require(counts["flash_fwd"] > 0 and counts["flash_fwd_tc"] == 0
+            and paged_decode_attention.launches > 0,
+            f"reference MoE serving launches {counts}")
+    _reference_train(torch, dataclasses.replace(cfg, remat=True,
+                                                remat_policy="full"),
+                     params, lm_loss, cfg.n_layers, "reference_moe_train",
+                     "2-layer f32, head_dim 128, 4 experts, top-2")
+
+
+def _reference_jamba(torch):
+    """A Jamba hybrid in f32 (`jamba_tiny` widened to dim 256, so that
+    its attention's head_dim is 64, which the kernels take; remat per
+    period): 3 training steps on the card and on the CPU."""
+    from ray_tpu_torch.models.mamba import (MambaConfig, init_mamba,
+                                            mamba_lm_loss)
+
+    cfg = MambaConfig(vocab=1024, dim=256, n_layers=4, state_dim=16,
+                      head_dim=32, chunk=16, attn_period=4, attn_heads=4,
+                      attn_kv_heads=2, dtype=torch.float32, remat=True)
+    _reference_train(torch, cfg, init_mamba(cfg, seed=8, device="cpu"),
+                     mamba_lm_loss, cfg.n_attn_layers, "reference_jamba_train",
+                     "4-layer f32 Jamba (3 Mamba-2, 1 attention, head_dim 64)")
 
 
 def _reference_paths(torch, cfg, params, prompts, sp, want):
@@ -1242,22 +1570,21 @@ def _reference_paths(torch, cfg, params, prompts, sp, want):
     require(all(checks.values()), f"reference paths failed: {checks}")
 
 
-def _reference_train(torch, cfg, params):
-    """3 training steps of the 2-layer f32 model (remat "full", a ragged
-    S=100 batch with a mask) on the card and on the CPU from the same
-    weights: per-step losses and grad norms within 1e-4 relative, params
-    afterwards within 1e-4. Adam's eps is 1e-4 here: with optax's 1e-8 an
-    element whose gradient is cancellation noise (|g| ~ 1e-8, either sign
-    on the card and on the CPU) would move by up to lr either way."""
-    import dataclasses
-
+def _reference_train(torch, cfg, params, loss_fn, n_attn, phase, model):
+    """3 training steps of ``loss_fn`` (a ragged S=100 batch with a mask,
+    which the Mamba loss ignores) on the card and on the CPU from the
+    same weights: per-step losses and grad norms within 1e-4 relative,
+    params afterwards within 1e-4; ``n_attn`` attention layers' launches,
+    none on tensor cores (f32). Adam's eps is 1e-4 here: with optax's
+    1e-8 an element whose gradient is cancellation noise (|g| ~ 1e-8,
+    either sign on the card and on the CPU) would move by up to lr
+    either way."""
     import numpy as np
 
     from ray_tpu_torch._private.tree import tree_leaves, tree_map
-    from ray_tpu_torch.models import lm_loss, params_to_numpy
+    from ray_tpu_torch.models import params_to_numpy
     from ray_tpu_torch.train import adamw, make_train_step
 
-    cfg = dataclasses.replace(cfg, remat=True, remat_policy="full")
     g = torch.Generator().manual_seed(4)
     tokens = torch.randint(0, cfg.vocab, (2, 100), generator=g,
                            dtype=torch.int32)
@@ -1268,7 +1595,7 @@ def _reference_train(torch, cfg, params):
     _zero_counts()
     for dev in ("cpu", "cuda"):
         init_fn, step_fn, place_batch = make_train_step(
-            lambda p, b: lm_loss(p, b, cfg), adamw(1e-3, eps=1e-4),
+            lambda p, b: loss_fn(p, b, cfg), adamw(1e-3, eps=1e-4),
             device=dev)
         state = init_fn(tree_map(lambda t: t.to(dev, copy=True), params))
         placed = place_batch(batch)
@@ -1285,18 +1612,15 @@ def _reference_train(torch, cfg, params):
         tree_leaves(p_card), tree_leaves(p_cpu)))
     p_ok = all(np.allclose(a, b, atol=1e-4, rtol=1e-4) for a, b in zip(
         tree_leaves(p_card), tree_leaves(p_cpu)))
-    emit({"phase": "reference_train", "model": "2-layer f32, head_dim 128",
-          "steps": 3, "loss_grad_norm_card": m_card,
+    emit({"phase": phase, "model": model, "steps": 3, "loss_grad_norm_card": m_card,
           "loss_grad_norm_cpu": m_cpu, "max_rel_err": rel,
           "params_max_abs_err": p_err, "params_ok": p_ok,
           "card_launches": counts})
-    require(rel < 1e-4, "card and CPU training losses differ")
-    require(p_ok, "card and CPU params differ after 3 steps")
+    require(rel < 1e-4, f"{phase}: card and CPU training losses differ")
+    require(p_ok, f"{phase}: card and CPU params differ after 3 steps")
     # f32 stays on the SIMT kernels: no tensor-core launch
-    require(counts == {"flash_fwd": 12, "flash_fwd_tc": 0,
-                       "flash_bwd_dq": 6, "flash_bwd_dq_tc": 0,
-                       "flash_bwd_dkv": 6, "flash_bwd_dkv_tc": 0},
-            f"reference training launches {counts}")
+    want = _want_train_counts(n_attn, tc=False)
+    require(counts == want, f"{phase}: launches {counts}, expected {want}")
 
 
 # --- phase 5 ---------------------------------------------------------------
@@ -1633,6 +1957,50 @@ def phase_profile(torch):
           "K=32, B=4", **decode})
 
 
+def _emit_moe_window(torch, name, fn):
+    from torch.autograd import DeviceType
+
+    window, prof = _profile_window(torch, fn)
+    attn = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and ("paged_decode" in e.name or "flash_fwd" in e.name))
+    emit({"phase": "profile_moe", "window": name, **window,
+          "attention_ms": attn / 1e3})
+
+
+def phase_profile_moe(torch):
+    """Where MoE serving's device time goes (the moe phase's model and
+    engine): one 511-token prefill and one decode burst at B=8, traced
+    after a warm-up; device time of the attention kernels (flash_fwd,
+    paged_decode) against the rest, which is the f32 expert mixture
+    (upcasts and f32 GEMMs) and the bf16 projections."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import init_params
+
+    _fresh_phase(torch)
+    cfg = _mixtral_cfg(torch, MOE_SERVE_LAYERS)
+    params = init_params(cfg, seed=7, device="cuda")
+    engine = LLMEngine(params, cfg, EngineConfig(**SERVE_ECFG),
+                       device="cuda")
+    sp = SamplingParams(temperature=0.0, max_tokens=SLICE_TOKENS)
+    prompts = _serving_prompts(torch, cfg.vocab)
+    engine.generate([prompts[0]], SamplingParams(temperature=0.0,
+                                                 max_tokens=9))
+    warm = engine.add_request(prompts[-1], sp)
+    engine.step(skip_decode=True)          # warm the 512 bucket
+    engine.abort_request(warm)
+    engine.add_request(prompts[-1], sp)
+    _emit_moe_window(torch, "MoE prefill 511 tokens, B=1",
+                     lambda: engine.step(skip_decode=True))
+    for p in prompts[:-1]:
+        engine.add_request(p, sp)
+    while sum(s is not None and s.ctx_len > 0 for s in engine.slots) < 8:
+        engine.step(skip_decode=True)
+    engine.step()                           # warm-up burst
+    _emit_moe_window(torch, "MoE decode burst, K=8, B=8", engine.step)
+    del engine, params
+
+
 GEMM_WORDS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "wgmma")
 # the CUDA kernels of each training wrapper, as the profiler names them
 # ("<namespace>::flash_bwd_dkv_tc_kernel(...)", "...::flash_fwd_kernel<...>")
@@ -1708,7 +2076,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
-                  "fleet", "train", "reference", "timing"]
+                  "fleet", "train", "moe", "moe_train", "mamba", "reference",
+                  "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
         card = phase_device(torch)
@@ -1737,6 +2106,15 @@ def main() -> int:
             for name, n in phase_train(torch).items():
                 launches[name] = launches.get(name, 0) + n
             torch.cuda.empty_cache()
+        # the other families, after the 8B weights are freed; each phase
+        # empties the cache and starts a new peak
+        for name, phase in (("moe", phase_moe),
+                            ("moe_train", phase_moe_train),
+                            ("mamba", phase_mamba)):
+            if name in phases:
+                for kernel, n in phase(torch, card).items():
+                    launches[kernel] = launches.get(kernel, 0) + n
+                torch.cuda.empty_cache()
         if "reference" in phases:
             phase_reference(torch)
         if "profile" in phases:
@@ -1744,6 +2122,9 @@ def main() -> int:
             torch.cuda.empty_cache()
         if "profile_train" in phases:
             phase_profile_train(torch)
+            torch.cuda.empty_cache()
+        if "profile_moe" in phases:
+            phase_profile_moe(torch)
             torch.cuda.empty_cache()
         if "timing" in phases:
             rows = phase_timing(torch, launches, max_err)

@@ -1,14 +1,15 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's device plane.
 
 It sits beside ``ray_tpu`` (the JAX reference) and imports nothing of it,
-nor of JAX. It serves Llama-3 on one NVIDIA H100 (whole-prompt and
-chunked prefill, the fused K-step decode burst, sampling, the
+nor of JAX. It serves Llama-3, dense or MoE, on one NVIDIA H100
+(whole-prompt and chunked prefill, the fused K-step decode burst,
+sampling, the
 continuous-batching engine with prefix caching, multi-LoRA, speculative
 decoding and the export/snapshot/inject KV plane) and trains it
-(``lm_loss`` under ``train.make_train_step``), with hand-written CUDA
-kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-``csrc/paged_decode.cu``) in place of the repository's four Pallas
-kernels. MoE configurations (``n_experts > 0``) are not ported and raise.
+(``lm_loss`` under ``train.make_train_step``), and trains Mamba-2 and the
+Jamba hybrid (``models.mamba``), with hand-written CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/paged_decode.cu``)
+in place of the repository's four Pallas kernels.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -18,8 +18,8 @@ speculative decoding (``speculation``, ``enable_speculation``,
 (``export_kv_request``, ``snapshot_kv_request``, ``inject_request``). KV
 payloads hold host ``torch`` tensors in the cache dtype (the reference's
 hold numpy arrays); ``inject_request`` also takes numpy f32 or f16.
-
-Not ported yet: MoE (``n_experts > 0``) raises.
+MoE models (``n_experts > 0``) serve on all of it with exact (drop-free)
+routing (llm/runner.py).
 """
 
 from __future__ import annotations
@@ -110,8 +110,6 @@ class LLMEngine:
     def __init__(self, params, cfg: LlamaConfig,
                  engine_config: Optional[EngineConfig] = None,
                  device=None):
-        if cfg.n_experts:
-            raise NotImplementedError("MoE serving is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         if _first_leaf(params).device != self.device:

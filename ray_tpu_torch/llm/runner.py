@@ -25,7 +25,10 @@ unlike JAX's clamping gathers and dropping scatters, an out-of-range
 index in torch raises or corrupts, so every (page, offset) pair is
 computed in range.
 
-MoE configurations (``n_experts > 0``) are not ported and raise.
+MoE configurations (``n_experts > 0``) serve on every entry point with
+the exact drop-free mixture (``ops.moe.moe_mlp_dense``), as the
+reference does: capacity-based dispatch would drop tokens depending on
+the batch and change generations.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from .._private.config import global_config
-from ..models.llama import LlamaConfig, layer_params
+from .._private.tree import layer_params
+from ..models.llama import LlamaConfig
 from ..ops import apply_rotary, attention, rms_norm
+from ..ops.moe import moe_mlp_dense
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import (embed_lookup, is_quantized, logits_matmul,
                          weight_einsum)
@@ -45,13 +50,12 @@ from .lora import lora_delta
 from .sampling import sample_from_logits
 
 
-def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE serving is not ported yet")
-
-
 def _mlp(h, lp, cfg: LlamaConfig):
-    """Dense SwiGLU."""
+    """Dense SwiGLU, or the exact top-k expert mixture for MoE (every
+    expert on every token in f32, E times the dense MLP's work)."""
+    if cfg.n_experts:
+        return moe_mlp_dense(h, lp["router"], lp["w_gate"], lp["w_up"],
+                             lp["w_down"], top_k=cfg.top_k)
     g = weight_einsum("bsd,dm->bsm", h, lp["w_gate"])
     u = weight_einsum("bsd,dm->bsm", h, lp["w_up"])
     return weight_einsum("bsm,md->bsd", F.silu(g) * u, lp["w_down"])
@@ -119,7 +123,6 @@ def prefill(params, cache_k, cache_v, tokens, prompt_lens, block_tables,
     ``LoRAPool.select`` (None or empty: the base model). Attention is
     ``ops.attention`` (the flash kernel on the card). Returns (logits
     [B, vocab] f32, cache_k, cache_v), the caches updated in place."""
-    _check_supported(cfg)
     B, S = tokens.shape
     dev = tokens.device
     page_size = cache_k.shape[2]
@@ -161,7 +164,6 @@ def prefill_chunk(params, cache_k, cache_v, tokens, start_pos: int,
     [start_pos, start_pos + chunk_len); they attend causally within the
     chunk and over the pages earlier chunks wrote. Returns (logits
     [1, vocab] of the chunk's last valid token, cache_k, cache_v)."""
-    _check_supported(cfg)
     B, C = tokens.shape
     dev = tokens.device
     n_pool, page_size = cache_k.shape[1], cache_k.shape[2]
@@ -228,7 +230,6 @@ def verify_step(params, cache_k, cache_v, tokens, positions, block_tables,
     window position j), the position-0 token [B], sampled unless
     ``greedy``, cache_k, cache_v), the caches updated in place.
     """
-    _check_supported(cfg)
     B, S = tokens.shape
     dev = tokens.device
     n_pool, page_size = cache_k.shape[1], cache_k.shape[2]
@@ -335,7 +336,6 @@ def decode_burst(params, cache_k, cache_v, tokens, positions,
 
     Returns (tokens [n_steps, B], cache_k, cache_v).
     """
-    _check_supported(cfg)
     use_paged = (global_config().llm_paged_kernel if paged_kernel is None
                  else paged_kernel)
     B = tokens.shape[0]

@@ -16,9 +16,8 @@ import numpy as np
 import torch
 
 from .._private.device import resolve_device
-from .._private.tree import tree_leaves
+from .._private.tree import tree_leaves, unstack_layers
 from ..train.optim import AdamState
-from .llama import unstack_layers
 
 
 def _leaf(a: Any, dev: torch.device) -> torch.Tensor:

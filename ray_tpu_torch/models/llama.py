@@ -10,8 +10,12 @@ loop over the stacked axis, each under ``torch.utils.checkpoint`` when
 ``cfg.remat`` is set and grad is on. ``lm_loss`` is the training loss.
 The trainer (train/step.py) hands the model one leaf per layer and name
 instead of the stacked leaves (``params["layers"]`` a list of per-layer
-dicts), so that no layer's backward touches a whole stacked leaf. MoE
-is not ported yet.
+dicts), so that no layer's backward touches a whole stacked leaf.
+
+MoE configurations (``n_experts > 0``) route each layer's MLP through
+``ops.moe.moe_mlp`` (top-k, capacity-capped dispatch); ``forward`` can
+return the layers' summed load-balancing loss, which ``lm_loss`` adds
+with ``aux_loss_coef``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .._private.device import resolve_device
+from .._private.tree import layer_params
 from ..ops import apply_rotary, attention, rms_norm, rope_frequencies
+from ..ops.moe import moe_mlp
 from ..ops.quant import logits_matmul
 
 
@@ -78,20 +84,15 @@ LLAMA_CONFIGS: Dict[str, LlamaConfig] = {
 }
 
 
-def _check_dense(cfg: LlamaConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet")
-
-
 def init_params(cfg: LlamaConfig, seed: int = 0, device=None):
     """Scaled-normal init (1/sqrt(fan_in)) from a seeded torch.Generator,
     stored in ``cfg.dtype``. ``device=None`` is the CUDA card;
     ``device="meta"`` gives the shapes without allocating. Draws are made
     one layer at a time in f32, so the f32 temporaries stay one layer
-    wide. The values differ from the JAX init (another generator); tests
-    carry JAX weights over with models/convert.py."""
-    _check_dense(cfg)
+    wide (one expert wide for MoE weights). An MoE router is stored in
+    f32 whatever ``cfg.dtype``, as in the reference. The values differ
+    from the JAX init (another generator); tests carry JAX weights over
+    with models/convert.py."""
     dev = resolve_device(device)
     L, d, hd = cfg.n_layers, cfg.dim, cfg.head_dim
     h, hkv, m = cfg.n_heads, cfg.n_kv_heads, cfg.mlp_dim
@@ -100,11 +101,12 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None):
         gen = torch.Generator(dev)
         gen.manual_seed(seed)
 
-    def norm(shape, fan_in, stacked=False):
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+    def norm(shape, fan_in, lead=0, dtype=cfg.dtype):
+        """Drawn one slice of the ``lead`` leading axes at a time."""
+        out = torch.empty(shape, dtype=dtype, device=dev)
         if gen is None:
             return out
-        for sl in (out if stacked else [out]):
+        for sl in out.view(-1, *shape[lead:]) if lead else [out]:
             sl.copy_(torch.randn(sl.shape, generator=gen, device=dev,
                                  dtype=torch.float32) * fan_in ** -0.5)
         return out
@@ -112,41 +114,30 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None):
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
+    if cfg.n_experts:
+        E = cfg.n_experts
+        mlp = {"router": norm((L, d, E), d, 1, torch.float32),
+               "w_gate": norm((L, E, d, m), d, 2),
+               "w_up": norm((L, E, d, m), d, 2),
+               "w_down": norm((L, E, m, d), m, 2)}
+    else:
+        mlp = {"w_gate": norm((L, d, m), d, 1),
+               "w_up": norm((L, d, m), d, 1),
+               "w_down": norm((L, m, d), m, 1)}
     return {
         "embed": norm((cfg.vocab, d), d),
         "layers": {
             "attn_norm": ones((L, d)),
-            "wq": norm((L, d, h, hd), d, True),
-            "wk": norm((L, d, hkv, hd), d, True),
-            "wv": norm((L, d, hkv, hd), d, True),
-            "wo": norm((L, h, hd, d), h * hd, True),
+            "wq": norm((L, d, h, hd), d, 1),
+            "wk": norm((L, d, hkv, hd), d, 1),
+            "wv": norm((L, d, hkv, hd), d, 1),
+            "wo": norm((L, h, hd, d), h * hd, 1),
             "mlp_norm": ones((L, d)),
-            "w_gate": norm((L, d, m), d, True),
-            "w_up": norm((L, d, m), d, True),
-            "w_down": norm((L, m, d), m, True),
+            **mlp,
         },
         "final_norm": ones((d,)),
         "lm_head": norm((d, cfg.vocab), d),
     }
-
-
-def layer_params(layers, li: int) -> Dict:
-    """Layer ``li`` of the stacked tree (quantized leaves slice both their
-    int8 values and their scales), or of a per-layer list."""
-    if isinstance(layers, (list, tuple)):
-        return layers[li]
-    return {k: ({"q": v["q"][li], "s": v["s"][li]} if isinstance(v, dict)
-                else v[li]) for k, v in layers.items()}
-
-
-def unstack_layers(params: Dict) -> Dict:
-    """The tree with ``params["layers"]`` as a list of per-layer dicts
-    whose tensors are views of the stacked leaves (sharing their storage,
-    so an in-place update of a layer's tensor updates the stacked leaf)."""
-    layers = params["layers"]
-    n = len(next(iter(layers.values())))
-    return {**params, "layers": [{k: v[li] for k, v in layers.items()}
-                                 for li in range(n)]}
 
 
 def _layer(x, lp, cfg: LlamaConfig, cos, sin):
@@ -157,10 +148,22 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin):
     o = attention(q, k, v, causal=True)
     x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    out, aux = _mlp(h, lp, cfg)
+    return x + out, aux
+
+
+def _mlp(h, lp, cfg: LlamaConfig):
+    """SwiGLU, or the routed expert MLP for MoE; and the layer's f32
+    load-balancing loss (None when dense)."""
+    if cfg.n_experts:
+        return moe_mlp(h, lp["router"], lp["w_gate"], lp["w_up"],
+                       lp["w_down"], top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor)
     g = torch.einsum("bsd,dm->bsm", h, lp["w_gate"])
     u = torch.einsum("bsd,dm->bsm", h, lp["w_up"])
-    return x + torch.einsum("bsm,md->bsd", torch.nn.functional.silu(g) * u,
-                            lp["w_down"])
+    out = torch.einsum("bsm,md->bsd", torch.nn.functional.silu(g) * u,
+                       lp["w_down"])
+    return out, None
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -187,21 +190,32 @@ def _layer_body(cfg: LlamaConfig):
     return functools.partial(checkpoint, _layer, **kw)
 
 
-def forward(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def forward(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            return_aux: bool = False):
     """tokens (B, S) int → logits (B, S, vocab) in f32. Attention is the
-    flash kernels on the card and their plain versions on the CPU."""
-    _check_dense(cfg)
+    flash kernels on the card and their plain versions on the CPU.
+    ``return_aux``: also return the MoE load-balancing loss summed over
+    layers (f32 scalar, 0 for a dense model)."""
     S = tokens.shape[1]
     dev = tokens.device
     cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
                                 device=dev)
     x = params["embed"][tokens.long()]
     body = _layer_body(cfg)
+    aux = None
     for li in range(cfg.n_layers):
-        x = body(x, layer_params(params["layers"], li), cfg, cos, sin)
+        x, layer_aux = body(x, layer_params(params["layers"], li), cfg,
+                            cos, sin)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # operands in the model dtype, f32 accumulation and result
-    return logits_matmul(x.to(cfg.dtype), params["lm_head"].to(cfg.dtype))
+    logits = logits_matmul(x.to(cfg.dtype), params["lm_head"].to(cfg.dtype))
+    if not return_aux:
+        return logits
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, aux
 
 
 def lm_loss(params, batch, cfg: LlamaConfig, *, z_loss: float = 1e-4):
@@ -209,9 +223,15 @@ def lm_loss(params, batch, cfg: LlamaConfig, *, z_loss: float = 1e-4):
 
     batch: {"tokens": (B, S) int, "mask": optional (B, S) 0/1 valid}.
     Targets are the tokens shifted left; the final position is dropped.
-    loss = sum(nll * mask) / max(sum(mask), 1)."""
+    loss = sum(nll * mask) / max(sum(mask), 1), plus ``aux_loss_coef``
+    times the summed load-balancing loss for MoE (added after masking, so
+    an all-masked MoE batch gives ``aux_loss_coef * aux``)."""
     tokens = batch["tokens"]
-    logits = forward(params, tokens, cfg)[:, :-1]
+    if cfg.n_experts:
+        logits, aux = forward(params, tokens, cfg, return_aux=True)
+    else:
+        logits = forward(params, tokens, cfg)
+    logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     nll = logz - logits.gather(-1, targets[..., None])[..., 0]
@@ -220,4 +240,7 @@ def lm_loss(params, batch, cfg: LlamaConfig, *, z_loss: float = 1e-4):
     mask = batch.get("mask")
     mask = (torch.ones_like(nll) if mask is None
             else mask[:, 1:].to(nll.dtype))
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    if cfg.n_experts:
+        loss = loss + cfg.aux_loss_coef * aux
+    return loss

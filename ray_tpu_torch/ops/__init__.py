@@ -1,6 +1,7 @@
-"""Tensor ops of the port: plain PyTorch, plus the hand-written CUDA
-kernels behind ``flash_attention`` (forward), ``flash_bwd_dq`` and
-``flash_bwd_dkv`` (backward) and ``paged_decode_attention``."""
+"""Tensor ops of the port: plain PyTorch (norms, rotary, the MoE
+mixture, the chunked SSD), plus the hand-written CUDA kernels behind
+``flash_attention`` (forward), ``flash_bwd_dq`` and ``flash_bwd_dkv``
+(backward) and ``paged_decode_attention``."""
 
 from .attention import (FlashAttention, attention, blockwise_attention,
                         dkv_route, dq_route, flash_attention,
@@ -8,18 +9,22 @@ from .attention import (FlashAttention, attention, blockwise_attention,
                         flash_attention_reference, flash_bwd_dkv,
                         flash_bwd_dkv_reference, flash_bwd_dq,
                         flash_bwd_dq_reference, fwd_route, naive_attention)
+from .moe import moe_dispatch, moe_mlp, moe_mlp_dense, moe_mlp_oracle
 from .norms import rms_norm
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_reference,
                               paged_decode_splits)
 from .rotary import apply_rotary, rope_frequencies
+from .ssd import ssd_chunked, ssd_reference
 
 __all__ = [
     "FlashAttention", "apply_rotary", "attention", "blockwise_attention",
     "dkv_route", "dq_route", "flash_attention", "flash_attention_bwd",
     "flash_attention_bwd_reference", "flash_attention_reference",
     "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
-    "flash_bwd_dq_reference", "fwd_route", "naive_attention",
+    "flash_bwd_dq_reference", "fwd_route", "moe_dispatch", "moe_mlp",
+    "moe_mlp_dense", "moe_mlp_oracle", "naive_attention",
     "paged_decode_attention", "paged_decode_attention_reference",
-    "paged_decode_splits", "rms_norm", "rope_frequencies",
+    "paged_decode_splits", "rms_norm", "rope_frequencies", "ssd_chunked",
+    "ssd_reference",
 ]

@@ -7,8 +7,9 @@ to a jitted step, the port updates the same tensors. The reference's
 session, mesh and telemetry plane is host plane and is not ported.
 
 Parameter layout: ``init_fn`` turns the stacked tree into the trainer's
-tree, whose ``"layers"`` is a list of per-layer dicts of leaves that are
-views of the stacked tensors (``unstack_layers``). Autograd then gives
+tree, whose stacked layer groups (``"layers"``, and any ``"*_layers"``)
+are lists of per-layer dicts of leaves that are views of the stacked
+tensors (``unstack_layers``). Autograd then gives
 one gradient per layer and name: slicing a stacked leaf inside the
 forward would make every layer's backward add a zero tensor of the whole
 stacked leaf into its gradient (3.76 GB for ``w_gate`` at 8B). The
@@ -24,8 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from .._private.device import DeviceLike, resolve_device
-from .._private.tree import tree_leaves, tree_map
-from ..models.llama import unstack_layers
+from .._private.tree import tree_leaves, tree_map, unstack_layers
 
 
 class TrainState(NamedTuple):

@@ -584,3 +584,53 @@ def test_train_step_launch_counts_on_card(gen, remat):
             flash_bwd_dkv.launches - before[2]) == (
         L * (2 if remat else 1), L, L)
     assert torch.isfinite(m["loss"]) and int(m["step"]) == 1
+
+
+def test_moe_mlp_dense_bf16_at_mixtral_widths_on_card_matches_cpu_f32(gen):
+    """The serving mixture (ops.moe.moe_mlp_dense) at Mixtral-8x7B widths,
+    one layer (dim 4096, 8 experts of 14336, top-2), bf16 x and experts
+    with an f32 router, on the card, against the same values in f32 on
+    the CPU: within one bf16 rounding of the output (2^-8 relative) plus
+    1e-5 of its largest entry (f32 sums in another order)."""
+    from ray_tpu_torch.ops.moe import moe_mlp_dense
+
+    D, M, E = 4096, 14336, 8
+    x = _randn(gen, (2, 4, D), torch.bfloat16)
+    router = _randn(gen, (D, E)) * D ** -0.5
+    ws = [(_randn(gen, shape) * fan ** -0.5).to(torch.bfloat16)
+          for shape, fan in (((E, D, M), D), ((E, D, M), D), ((E, M, D), M))]
+    got = moe_mlp_dense(x, router, *ws, top_k=2)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = moe_mlp_dense(x.float().cpu(), router.cpu(),
+                         *[w.float().cpu() for w in ws], top_k=2)
+    err = (got.float().cpu() - want).abs()
+    assert bool((err <= 2 ** -8 * want.abs()
+                 + 1e-5 * float(want.abs().max())).all()), float(err.max())
+
+
+def test_jamba_step_launches_flash_kernels_on_card(gen):
+    """One training step of a bf16 Jamba hybrid whose attention has
+    head_dim 128 (remat per period): its attention layer launches the
+    forward twice (forward, recompute) and dQ and dK/dV once each, all
+    on tensor cores, and every gradient is finite."""
+    from ray_tpu_torch.models.mamba import (MambaConfig, init_mamba,
+                                            mamba_lm_loss)
+
+    cfg = MambaConfig(vocab=512, dim=512, n_layers=4, state_dim=16,
+                      head_dim=64, chunk=64, attn_period=4, attn_heads=4,
+                      attn_kv_heads=2, remat=True)
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: mamba_lm_loss(p, b, cfg), adamw(1e-3), device="cuda")
+    state = init_fn(init_mamba(cfg, seed=1, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab, (2, 129), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    before = {fn: (fn.launches, fn.launches_tc)
+              for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv)}
+    state, m = step_fn(state, place_batch({"tokens": tokens}))
+    torch.cuda.synchronize()
+    got = {fn.__name__: (fn.launches - n, fn.launches_tc - tc)
+           for fn, (n, tc) in before.items()}
+    assert got == {"flash_attention": (2, 2), "flash_bwd_dq": (1, 1),
+                   "flash_bwd_dkv": (1, 1)}
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])

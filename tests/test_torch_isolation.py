@@ -48,6 +48,16 @@ def _no_card_env():
     return env
 
 
+def test_the_walk_covers_every_model_family():
+    """The module walk behind the import checks reaches the MoE, SSD and
+    Mamba modules as it does the kernels' wrappers."""
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.ssd",
+              "ray_tpu_torch.models.mamba", "ray_tpu_torch.ops.attention",
+              "ray_tpu_torch.llm.engine"):
+        assert m in mods, m
+
+
 def test_importing_every_module_loads_no_jax():
     """In a fresh interpreter where any import of jax or ray_tpu raises,
     every module of the port imports, and none of them is loaded after."""

@@ -126,12 +126,23 @@ def test_params_from_jax_bf16_and_quantized_leaves():
 
 
 def test_moe_config_is_refused():
-    moe = LLAMA_CONFIGS["tiny"].__class__(
-        **{**TINY.__dict__, "n_experts": 4})
-    with pytest.raises(NotImplementedError):
-        init_params(moe, device="cpu")
-    with pytest.raises(NotImplementedError):
-        forward({}, torch.zeros((1, 2), dtype=torch.long), moe)
+    """MoE is no longer refused: the port's init makes the reference's
+    MoE tree (an f32 router beside the model-dtype experts), and forward
+    on the reference's MoE weights gives its logits at 1e-4."""
+    moe = TINY.__class__(**{**TINY.__dict__, "n_experts": 4})
+    jmoe = J_CONFIGS["tiny"].__class__(
+        **{**J_CONFIGS["tiny"].__dict__, "n_experts": 4})
+    mine = init_params(moe, seed=0, device="cpu")
+    assert mine["layers"]["router"].dtype == torch.float32
+    assert mine["layers"]["w_gate"].shape == (2, 4, TINY.dim, TINY.mlp_dim)
+    jp = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(1), jmoe))
+    toks = np.random.default_rng(5).integers(
+        0, TINY.vocab, (2, 12)).astype(np.int32)
+    want = np.asarray(j_forward(jax.tree.map(jnp.asarray, jp),
+                                jnp.asarray(toks), jmoe))
+    got = forward(params_from_jax(jp, device="cpu"), torch.from_numpy(toks),
+                  moe)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
 
 
 def test_quantize_params_matches_jax(jax_tiny):
@@ -202,16 +213,33 @@ def test_lm_loss_and_grads_match_jax(jax_tiny, with_mask):
 
 
 def test_lm_loss_all_masked_is_zero_and_moe_refused():
+    """An all-masked batch: 0 for a dense model; for MoE (no longer
+    refused) aux_loss_coef * aux, the aux term being added after masking,
+    equal to the reference's loss at 1e-4."""
     params = init_params(TINY, seed=1, device="cpu")
     batch = _lm_batch(22, True)
     batch["mask"][:] = 0
     loss = lm_loss(params, {k: torch.from_numpy(v) for k, v in batch.items()},
                    TINY)
     assert float(loss) == 0.0
+    # a dense model's aux, when asked for, is an f32 zero
+    _, aux = forward(params, torch.from_numpy(batch["tokens"]), TINY,
+                     return_aux=True)
+    assert aux.dtype == torch.float32 and aux.shape == () and float(aux) == 0
     moe = TINY.__class__(**{**TINY.__dict__, "n_experts": 4})
-    with pytest.raises(NotImplementedError):
-        lm_loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                moe)
+    jmoe = J_CONFIGS["tiny"].__class__(
+        **{**J_CONFIGS["tiny"].__dict__, "n_experts": 4})
+    jp = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(2), jmoe))
+    tp = params_from_jax(jp, device="cpu")
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = lm_loss(tp, tbatch, moe)
+    _, aux = forward(tp, tbatch["tokens"], moe, return_aux=True)
+    assert float(loss) > 0
+    np.testing.assert_allclose(float(loss), moe.aux_loss_coef * float(aux),
+                               rtol=1e-6)
+    want = j_lm_loss(jax.tree.map(jnp.asarray, jp),
+                     {k: jnp.asarray(v) for k, v in batch.items()}, jmoe)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-4)
 
 
 def _count_attention_calls(monkeypatch):

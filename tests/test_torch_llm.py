@@ -387,14 +387,23 @@ def test_engine_abort_frees_pages(weights):
 
 
 def test_engine_refuses_what_is_not_ported(weights):
-    """MoE is the one configuration still refused as not ported; the
-    reference's own guards raise ValueError on both packages."""
+    """Nothing is refused as not ported any more: an MoE engine serves
+    the reference's greedy streams. The reference's own guards raise
+    ValueError on both packages."""
     import dataclasses
 
     base = dict(max_num_seqs=2, page_size=4, num_pages=32, max_seq_len=32)
-    with pytest.raises(NotImplementedError):
-        LLMEngine(weights[1], dataclasses.replace(CFG, n_experts=4),
-                  EngineConfig(**base), device="cpu")
+    jmoe = dataclasses.replace(JCFG, n_experts=4)
+    jp = j_init(jax.random.PRNGKey(3), jmoe)
+    prompts = [[5, 17, 99, 3], [8, 1, 2]]
+    got = LLMEngine(params_from_jax(jax.tree.map(np.asarray, jp),
+                                    device="cpu"),
+                    dataclasses.replace(CFG, n_experts=4),
+                    EngineConfig(**base), device="cpu").generate(
+        prompts, SamplingParams(max_tokens=6, **GREEDY))
+    want = JLLMEngine(jp, jmoe, JEngineConfig(**base)).generate(
+        prompts, JSamplingParams(max_tokens=6, **GREEDY))
+    assert got == want
     spec = {"draft_config": "tiny", "num_draft_tokens": 2}
     for bad in (dict(lora_rank=4, enable_prefix_caching=True),
                 dict(lora_rank=4, prefill_chunk=8),

@@ -23,7 +23,7 @@ from ray_tpu.models import param_logical_axes
 from ray_tpu.parallel import MeshSpec, build_mesh
 from ray_tpu.train import make_train_step as j_make_train_step
 
-from ray_tpu_torch._private.tree import tree_leaves
+from ray_tpu_torch._private.tree import tree_leaves, unstack_layers
 from ray_tpu_torch.models import (LLAMA_CONFIGS, init_params, lm_loss,
                                   opt_state_from_jax, params_from_jax,
                                   params_to_numpy)
@@ -239,3 +239,20 @@ def test_grad_norm_in_bf16_is_an_f32_sum_where_optax_sums_in_bf16():
         [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
     np.testing.assert_allclose(got.item(), f32.item(), rtol=1e-6)
     np.testing.assert_allclose(got.item(), want, rtol=2e-2)
+
+
+def test_unstack_layers_splits_every_layer_group():
+    """Every top-level ``"layers"`` or ``"*_layers"`` group becomes a list
+    of per-layer views of its stacked leaves; other leaves stay as they
+    are, and an in-place update of a layer lands in the stacked leaf."""
+    tree = {"embed": torch.zeros(4, 2),
+            "layers": {"w": torch.zeros(3, 2, 2), "n": torch.zeros(3, 2)},
+            "attn_layers": {"wo": torch.zeros(2, 5)},
+            "lm_head": torch.zeros(2, 4)}
+    out = unstack_layers(tree)
+    assert out["embed"] is tree["embed"] and out["lm_head"] is tree["lm_head"]
+    assert [tuple(lp["w"].shape) for lp in out["layers"]] == [(2, 2)] * 3
+    assert [tuple(lp["wo"].shape) for lp in out["attn_layers"]] == [(5,)] * 2
+    out["attn_layers"][1]["wo"].add_(1.0)
+    assert float(tree["attn_layers"]["wo"][1].sum()) == 5.0
+    assert float(tree["attn_layers"]["wo"][0].sum()) == 0.0
