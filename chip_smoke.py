@@ -18,7 +18,7 @@ Phases, one JSON line each on stdout:
                every decode step through the paged kernel.
      spec    - the same model, configuration and 8 prompts, 32 greedy
                tokens each, speculatively decoded with 4 draft tokens: a
-               Llama-3.2-1B shaped drafter (random, seed 11; reject regime)
+               drafter of the repo's 1b config (random, seed 11; reject regime)
                and the target as its own drafter (agree regime, acceptance
                at least 0.9).
      lora    - the same with lora_rank 16: two seeded adapters worn by 2
@@ -40,12 +40,22 @@ Phases, one JSON line each on stdout:
      mamba   - Mamba-2 130m and Jamba 350m (full size, bf16) trained 1+3
                steps at B=4, S=2048: the loss falls, gradients finite,
                Jamba's attention through all three flash kernels.
+     grpo    - GRPO RLHF: the default `tiny` config raises its reward on
+               the token-7 objective in 13 iterations; Llama 1b (full
+               width and depth, bf16, seed 7) 3 iterations of G=8 over 4
+               prompts, 32 sampled tokens each: KL 0 then > 0, the
+               reference params untouched, launches as derived, on
+               tensor cores; the device-busy share of sampling and update.
+     rl      - PPO, APPO, IMPALA, DQN, SAC, BC and MARWIL with the learner
+               on the card and the runners in-process: finite losses,
+               moved params, and each update card against CPU.
   7. reference - a small f32 model served, then trained 3 steps, on the
                card and on the CPU from the same weights: identical greedy
                streams (plain, speculative in both regimes, LoRA, export ->
                inject), and the same losses and params; the same with 4
                experts (plain, chunked and gather streams, training), and
-               a small f32 Jamba trained.
+               a small f32 Jamba trained; `tiny` (head_dim 16) served and
+               trained, `jamba_tiny` trained, and GRPO on `tiny`.
   8. timing  - kernel, plain-version and library times, and the bound.
 A comma-separated list of phases runs only those and prints no result;
 `profile`, `profile_train` and `profile_moe` (not in the default run)
@@ -139,7 +149,7 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
 
 
 def phase_build():
-    """Build every kernel; no tensor-core kernel may spill."""
+    """Build every kernel; no flash or paged kernel may spill."""
     from ray_tpu_torch.ops import _kernels
 
     paths = _kernels.build_all()
@@ -159,11 +169,18 @@ def phase_build():
                     f"{tc} spills or is missing: {got}")
         paged = {k: v for k, v in kernels.items()
                  if k.startswith("paged_decode_")}
-        # 12 split kernels (<f32/bf16, hd 64/128, rep up to 4/8/16>) and 4
-        # combine kernels
-        require(len(paged) == 16 and all(
+        # 24 split kernels (<f32/bf16, hd 16/32/64/128, rep up to 4/8/16>)
+        # and 8 combine kernels
+        require(len(paged) == 32 and all(
             v.get("spill_bytes") == 0 for v in paged.values()),
             f"a paged decode kernel spills or is missing: {paged}")
+        # every SIMT flash kernel: forward, dQ and dK/dV in f32 at head_dim
+        # 16, 32, 64 and 128 and in bf16 at 16, 32 and 64
+        simt = {k: v for k, v in kernels.items() if k.startswith("flash_")
+                and re.search(r"<(f32|bf16),\d+>$", k)}
+        require(len(simt) == 21 and all(
+            v.get("spill_bytes") == 0 for v in simt.values()),
+            f"a SIMT flash kernel spills or is missing: {simt}")
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -185,6 +202,19 @@ FLASH_CASES = [
     ("strided_qkv", 2, 96, 96, 8, 2, 128, True, "bf16", True),
     ("f32", 1, 130, 130, 4, 1, 128, True, "f32", False),
     ("f32_sq_gt_skv", 2, 96, 64, 4, 2, 64, True, "f32", False),
+    # head_dim 16 (`tiny`, `jamba_tiny`; the grpo phase's tiny update: 16
+    # rows of 11 tokens) and 32, on the SIMT kernel
+    ("d16_f32_grpo_tiny", 16, 11, 11, 4, 2, 16, True, "f32", False),
+    ("d16_f32_sq_gt_skv", 2, 96, 64, 4, 2, 16, True, "f32", False),
+    ("d16_bf16", 2, 130, 130, 4, 2, 16, True, "bf16", False),
+    ("d32_f32", 1, 200, 200, 8, 2, 32, True, "f32", False),
+    ("d32_bf16_non_causal", 2, 96, 96, 4, 4, 32, False, "bf16", False),
+    # the grpo phase's 1b run: sampling forwards G=8 rows of the shortest
+    # and the longest prompt plus 32 tokens, the update all 32 rows padded
+    # to 48 (one partial 64-row tile)
+    ("grpo_1b_sample_s37", 8, 37, 37, 16, 8, 128, True, "bf16", False),
+    ("grpo_1b_sample_s48", 8, 48, 48, 16, 8, 128, True, "bf16", False),
+    ("grpo_1b_update", 32, 48, 48, 16, 8, 128, True, "bf16", False),
 ]
 
 BWD_CASES = [
@@ -199,6 +229,12 @@ BWD_CASES = [
     ("mha", 2, 192, 192, 4, 4, 128, True, "bf16"),
     ("d64", 1, 200, 200, 8, 4, 64, True, "bf16"),
     ("f32", 2, 130, 100, 4, 1, 128, True, "f32"),
+    ("d16_f32_grpo_tiny", 16, 11, 11, 4, 2, 16, True, "f32"),
+    ("d16_f32_sq_gt_skv", 2, 96, 64, 4, 2, 16, True, "f32"),
+    ("d16_bf16", 2, 130, 130, 4, 2, 16, True, "bf16"),
+    ("d32_f32_non_causal", 1, 130, 200, 4, 1, 32, False, "f32"),
+    ("d32_bf16", 2, 200, 200, 8, 2, 32, True, "bf16"),
+    ("grpo_1b_update", 32, 48, 48, 16, 8, 128, True, "bf16"),
 ]
 
 # B, kvh, rep, hd, page, n_pages, K
@@ -310,6 +346,20 @@ def _paged_cases(torch):
     cases.append(("f32_split_edges", args, 1e-4))
     args = _paged_inputs(torch, 2, 2, 16, 64, 32, 5, 4, "bf16", seed=7)
     cases.append(("bf16_rep16_d64", args, BF16_ROUNDING))
+    # head_dim 16 (`tiny`: 2 kv heads, rep 2) and 32: the small-head lane
+    # mapping, with an empty row and a ragged last page
+    for name, shape, dtype, seed, tol in (
+            ("f32_d16_tiny", (4, 2, 2, 16, 16, 8, 4), "f32", 8, 1e-4),
+            ("bf16_d16_rep8", (4, 2, 8, 16, 16, 8, 4), "bf16", 9,
+             BF16_ROUNDING),
+            ("f32_d32_rep1", (3, 4, 1, 32, 16, 6, 4), "f32", 10, 1e-4),
+            ("bf16_d32_rep16", (3, 2, 16, 32, 32, 5, 4), "bf16", 11,
+             BF16_ROUNDING)):
+        args = _paged_inputs(torch, *shape, dtype, seed=seed)
+        args[6][0] = 0
+        args[7][0] = 0
+        args[6][1] = 37
+        cases.append((name, args, tol))
     return cases
 
 
@@ -814,9 +864,9 @@ def _check_streams(streams, vocab, n, what):
 
 def phase_spec(torch, card):
     """Speculative decoding at full width: the engine phase's model,
-    configuration and 8 prompts, 32 greedy tokens each, with a Llama-3.2-1B
-    shaped drafter (random, seed 11; reject regime) and with the target as
-    its own drafter (agree regime), 4 draft tokens a round."""
+    configuration and 8 prompts, 32 greedy tokens each, with a drafter of
+    the repo's 1b config (random, seed 11; reject regime) and with the
+    target as its own drafter (agree regime), 4 draft tokens a round."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import LLAMA_CONFIGS
 
@@ -1119,11 +1169,11 @@ def _timed_steps(torch, step_fn, state, batch, tokens_per_step):
             tokens_per_step / (mean_ms / 1e3), counts, m)
 
 
-def _want_train_counts(n_attn, tc=True, steps=3):
-    """Launches of ``steps`` remat'd steps of ``n_attn`` attention layers:
-    the forward twice (forward, recompute), each backward once; all on
-    tensor cores, or none."""
-    per_run = {"flash_fwd": 2 * n_attn * steps,
+def _want_train_counts(n_attn, tc=True, steps=3, remat=True):
+    """Launches of ``steps`` steps of ``n_attn`` attention layers: the
+    forward twice under remat (forward, recompute), else once, each
+    backward once; all on tensor cores, or none."""
+    per_run = {"flash_fwd": (2 if remat else 1) * n_attn * steps,
                "flash_bwd_dq": n_attn * steps,
                "flash_bwd_dkv": n_attn * steps}
     return {**per_run, **{k + "_tc": n if tc else 0
@@ -1385,7 +1435,8 @@ def phase_reference(torch):
     and a small f32 Jamba trained, on the card, through the kernels, and
     on the CPU, through their plain versions, from the same weights. f32
     matmuls on the card run without TF32, so greedy streams must be
-    identical."""
+    identical. Then the head_dim-16 configurations and GRPO
+    (_reference_small_heads), whose launches it returns."""
     import dataclasses
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
@@ -1433,11 +1484,151 @@ def phase_reference(torch):
                      "2-layer f32, head_dim 128")
     _reference_moe(torch, cfg, prompts, sp)
     _reference_jamba(torch)
+    return _reference_small_heads(torch)
+
+
+def _reference_small_heads(torch):
+    """The head_dim-16 configurations through the D=16 kernels, card
+    against CPU from the same weights: `tiny` served (greedy f32 streams
+    identical, every decode step through paged_decode) and trained 3
+    steps, `jamba_tiny` trained 3 steps (_reference_train's tolerances),
+    and GRPO on `tiny` (_reference_grpo). Returns the launches of these
+    runs."""
+    from ray_tpu_torch._private.tree import tree_map
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params, lm_loss
+    from ray_tpu_torch.models.mamba import (MAMBA_CONFIGS, init_mamba,
+                                            mamba_lm_loss)
+
+    cfg = LLAMA_CONFIGS["tiny"]
+    params = init_params(cfg, seed=3, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in (3, 16, 33, 70)]
+    sp = SamplingParams(temperature=0.0, max_tokens=24)
+    launches = {}
+    _zero_serving_counts()
+    got, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = LLMEngine(tree_map(lambda t: t.to(dev), params), cfg,
+                        EngineConfig(max_num_seqs=4, page_size=16,
+                                     num_pages=64, max_seq_len=128,
+                                     decode_burst=4), device=dev)
+        got[dev] = eng.generate(prompts, sp)
+        stats[dev] = eng.stats()
+    torch.cuda.synchronize()
+    counts = _serving_counts()
+    card = stats["cuda"]
+    emit({"phase": "reference_tiny", "model": "tiny (f32, head_dim 16)",
+          "requests": len(prompts), "tokens_each": sp.max_tokens,
+          "card_equals_cpu": got["cuda"] == got["cpu"],
+          "paged_decode_steps": card["paged_decode_steps"],
+          "decode_steps": card["decode_steps"], "launches": counts})
+    require(got["cuda"] == got["cpu"],
+            "tiny: greedy streams on the card differ from the CPU's")
+    require(card["paged_decode_steps"] == card["decode_steps"] > 0
+            and counts["paged_decode"] > 0 and counts["flash_fwd"] > 0
+            and counts["flash_fwd_tc"] == 0,
+            f"tiny serving did not take the kernels: {counts}")
+    for k in ("flash_fwd", "paged_decode"):
+        launches[k] = counts[k]
+    for args in ((cfg, params, lm_loss, cfg.n_layers,
+                  "reference_tiny_train", "tiny (f32, head_dim 16)"),
+                 (MAMBA_CONFIGS["jamba_tiny"],
+                  init_mamba(MAMBA_CONFIGS["jamba_tiny"], seed=8,
+                             device="cpu"), mamba_lm_loss,
+                  MAMBA_CONFIGS["jamba_tiny"].n_attn_layers,
+                  "reference_jamba_tiny_train",
+                  "jamba_tiny (f32, attention head_dim 16)")):
+        for k, n in _reference_train(torch, *args).items():
+            launches[k] = launches.get(k, 0) + n
+    for k, n in _reference_grpo(torch, cfg, params).items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def _reference_grpo(torch, cfg, params):
+    """GRPO on `tiny` (f32, head_dim 16) on the card and on the CPU from
+    the same weights. GRPO.train at temperature 0 with the group-position
+    reward, 2 iterations: identical completions in both, the first
+    iteration's KL exactly 0 and its mean log-prob within 1e-5. (At
+    temperature 0 a group's rows are equal, so the policy gradient is 0 up
+    to rounding, which Adam turns into moves of up to lr that differ by
+    device: the params after it are not comparable.) Then one update on a
+    batch of distinct rows: losses within 1e-5, the gradients within 1e-5
+    of their largest entry, every param within 1e-5 abs + 1e-5 rel."""
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+    from ray_tpu_torch.rllib import GRPO, GRPOConfig
+    from ray_tpu_torch.rllib.grpo import _grpo_loss, _grpo_update
+    from ray_tpu_torch.train import adamw
+
+    kw = dict(model="tiny", group_size=4, max_tokens=6, temperature=0.0,
+              lr=1e-4, kl_coef=0.1, seed=0)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9]]
+    runs = {}
+    _zero_counts()
+    for dev in ("cpu", "cuda"):
+        seen = []
+
+        def reward(completions, seen=seen):
+            seen.append(completions)
+            return [float(i % 8) for i in range(len(completions))]
+
+        algo = GRPO(GRPOConfig(**kw), params=params, device=dev)
+        runs[dev] = ([algo.train(prompts, reward) for _ in range(2)], seen)
+    torch.cuda.synchronize()
+    counts = _train_counts()
+    (r_cpu, s_cpu), (r_card, s_card) = runs["cpu"], runs["cuda"]
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (6, 20), generator=g,
+                                     dtype=torch.int32),
+             "mask": (torch.rand(6, 20, generator=g) > 0.3).float(),
+             "advantages": torch.randn(6, generator=g)}
+    upd = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(),
+                     params)
+        ref = tree_map(lambda t: t.to(dev, copy=True), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = _grpo_loss(p, ref, b, 0.1, cfg)
+        grads = [x.cpu() for x in torch.autograd.grad(loss, tree_leaves(p))]
+        _, _, m = _grpo_update(p, ref, adamw(1e-3, weight_decay=0.0).init(p),
+                               b, 1e-3, kl_coef=0.1, cfg=cfg)
+        upd[dev] = ({k: float(v) for k, v in m.items()}, grads,
+                    [t.detach().cpu() for t in tree_leaves(p)])
+    (m0, g0, p0), (m1, g1, p1) = upd["cpu"], upd["cuda"]
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(g1, g0))
+    loss_err = max(abs(m1[k] - m0[k]) / max(1.0, abs(m0[k])) for k in m0)
+    p_ok, p_err = _params_close(p1, p0)
+    checks = {
+        "completions_identical": s_card == s_cpu,
+        "kl_0_in_iteration_1": r_card[0]["kl"] == r_cpu[0]["kl"] == 0.0,
+        "mean_logp_it1": abs(r_card[0]["mean_logp"] - r_cpu[0]["mean_logp"])
+        <= 1e-5 * max(1.0, abs(r_cpu[0]["mean_logp"])),
+        "update_losses": loss_err <= 1e-5 and m1["kl"] == m0["kl"] == 0.0,
+        "update_grads": grad_err <= 1e-5,
+        "update_params": p_ok}
+    emit({"phase": "reference_grpo", "model": "tiny (f32, head_dim 16)",
+          "train_card": [{k: r[k] for k in ("reward_mean", "kl", "pg_loss",
+                                            "mean_logp")} for r in r_card],
+          "train_cpu": [{k: r[k] for k in ("reward_mean", "kl", "pg_loss",
+                                           "mean_logp")} for r in r_cpu],
+          "update_loss_max_rel_err": loss_err,
+          "update_grad_max_err_over_max": grad_err,
+          "update_params_max_abs_err": p_err, **checks,
+          "train_launches": counts})
+    require(all(checks.values()), f"reference GRPO failed: {checks}")
+    want = {k: 2 * n for k, n in _want_grpo_counts(
+        len(prompts), kw["max_tokens"], cfg, tc=False).items()}
+    require(counts == want, f"reference GRPO launches {counts}, "
+            f"expected {want}")
+    return counts
 
 
 def _reference_moe(torch, dense_cfg, prompts, sp):
-    """The reference model with 4 experts, top-2 (f32; `tiny`'s head_dim
-    16 is outside the kernels' 64 and 128): greedy streams of the plain,
+    """The reference model with 4 experts, top-2 (f32, head_dim 128):
+    greedy streams of the plain,
     the chunked-prefill and the gather-decode engine identical on the
     card and on the CPU, then 3 training steps."""
     import dataclasses
@@ -1482,9 +1673,9 @@ def _reference_moe(torch, dense_cfg, prompts, sp):
 
 
 def _reference_jamba(torch):
-    """A Jamba hybrid in f32 (`jamba_tiny` widened to dim 256, so that
-    its attention's head_dim is 64, which the kernels take; remat per
-    period): 3 training steps on the card and on the CPU."""
+    """A Jamba hybrid in f32 (`jamba_tiny` widened to dim 256: attention
+    head_dim 64; remat per period): 3 training steps on the card and on
+    the CPU. `jamba_tiny` itself (head_dim 16) is _reference_small_heads'."""
     from ray_tpu_torch.models.mamba import (MambaConfig, init_mamba,
                                             mamba_lm_loss)
 
@@ -1619,8 +1810,364 @@ def _reference_train(torch, cfg, params, loss_fn, n_attn, phase, model):
     require(rel < 1e-4, f"{phase}: card and CPU training losses differ")
     require(p_ok, f"{phase}: card and CPU params differ after 3 steps")
     # f32 stays on the SIMT kernels: no tensor-core launch
-    want = _want_train_counts(n_attn, tc=False)
+    want = _want_train_counts(n_attn, tc=False,
+                              remat=getattr(cfg, "remat", True))
     require(counts == want, f"{phase}: launches {counts}, expected {want}")
+    return counts
+
+
+
+# --- RLlib: GRPO RLHF on Llama, the MLP learners ---------------------------
+
+GRPO_1B = dict(group_size=8, max_tokens=32, temperature=1.0, kl_coef=0.02,
+               seed=7)
+GRPO_PROMPT_LENS = (5, 9, 12, 16)
+GRPO_ITERS = 3
+
+
+def _want_grpo_counts(n_prompts, n_tokens, cfg, tc):
+    """Launches of one GRPO iteration: sampling runs one forward of
+    n_layers attention layers per prompt and new token; the update runs
+    the policy forward, its remat recompute (when cfg.remat is set, as
+    _want_train_counts counts it) and the reference forward, and each
+    backward kernel once a layer."""
+    L = cfg.n_layers
+    upd = _want_train_counts(L, tc=tc, steps=1, remat=cfg.remat)
+    fwd = n_prompts * n_tokens * L + upd["flash_fwd"] + L
+    return {"flash_fwd": fwd, "flash_fwd_tc": fwd if tc else 0,
+            "flash_bwd_dq": L, "flash_bwd_dq_tc": L if tc else 0,
+            "flash_bwd_dkv": L, "flash_bwd_dkv_tc": L if tc else 0}
+
+
+def _range_busy(prof, name):
+    """The host milliseconds of the record_function range ``name`` (which
+    ends in a sync) and the device busy time (the union of kernel
+    intervals) of the kernels that ran inside it."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in prof.events() if e.name == name
+           and e.device_type == DeviceType.CPU]
+    if not cpu:
+        return {"host_ms": "not measured", "device_busy_ms": "not measured"}
+    lo, hi = cpu[0].time_range.start, cpu[0].time_range.end
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("train.", "grpo."))
+                   and lo <= e.time_range.start <= hi)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"host_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (hi - lo), "kernels": len(spans)}
+
+
+def _grpo_tiny_default(torch):
+    """GRPO's default model (`tiny`, f32, head_dim 16) with
+    tests/test_rllib.py's objective (the count of token 7 in a
+    completion), 13 iterations: the reward must rise by 0.5."""
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+    from ray_tpu_torch.rllib import GRPOConfig
+
+    def reward_fn(completions):
+        return [float(sum(1 for t in c if t == 7)) for c in completions]
+
+    _zero_counts()
+    algo = GRPOConfig(model="tiny", group_size=8, max_tokens=8, lr=5e-3,
+                      kl_coef=0.0, seed=3).build(device="cuda")
+    prompts = [[1, 2, 3], [4, 5, 6]]
+    results = [algo.train(prompts, reward_fn) for _ in range(13)]
+    torch.cuda.synchronize()
+    counts = _train_counts()
+    rewards = [r["reward_mean"] for r in results]
+    per_iter = _want_grpo_counts(len(prompts), 8, LLAMA_CONFIGS["tiny"],
+                                 tc=False)
+    want = {k: 13 * n for k, n in per_iter.items()}
+    emit({"phase": "grpo", "case": "tiny default (f32, head_dim 16)",
+          "iterations": 13, "reward_mean": rewards,
+          "total_loss": [r["total_loss"] for r in results],
+          "launches": counts, "expected_launches": want})
+    require(all(math.isfinite(r["total_loss"]) for r in results),
+            "tiny GRPO: a loss is not finite")
+    require(max(rewards[-4:]) > rewards[0] + 0.5,
+            f"tiny GRPO did not raise its reward: {rewards}")
+    require(counts == want, f"tiny GRPO launches {counts}, expected {want}")
+    return counts
+
+
+def phase_grpo(torch, card):
+    """GRPO on the card: (a) the default `tiny` config learns the token-7
+    objective; (b) LLAMA_CONFIGS["1b"] at full width and depth, bf16,
+    random weights from seed 7: G=8 over 4 prompts of 5-16 tokens, 32
+    new tokens at temperature 1, kl_coef 0.02, 3 iterations, rewarded by
+    the share of even token ids. The KL is exactly 0 in the first
+    iteration and positive after; the reference policy keeps the initial
+    bits; the policy moves; every launch is as derived from the shapes,
+    on tensor cores. Then one iteration is traced for the device-busy
+    share of sampling and of the update."""
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+    from ray_tpu_torch.rllib import GRPOConfig
+
+    launches = _grpo_tiny_default(torch)
+    _fresh_phase(torch)
+    cfg = LLAMA_CONFIGS["1b"]
+    require(cfg.dtype == torch.bfloat16 and cfg.head_dim == 128
+            and cfg.remat, "unexpected 1b config")
+    t0 = time.perf_counter()
+    algo = GRPOConfig(model="1b", **GRPO_1B).build(device="cuda")
+    init = [t.clone() for t in tree_leaves(algo.ref_params)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in GRPO_PROMPT_LENS]
+
+    def even_share(completions):
+        return [sum(1 for t in c if t % 2 == 0) / len(c)
+                for c in completions]
+
+    want = _want_grpo_counts(len(prompts), GRPO_1B["max_tokens"], cfg,
+                             tc=True)
+    n_sampled = len(prompts) * GRPO_1B["group_size"] * GRPO_1B["max_tokens"]
+    iters = []
+    for it in range(GRPO_ITERS):
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        r = algo.train(prompts, even_share)
+        torch.cuda.synchronize()
+        counts = _train_counts()
+        iters.append({
+            "iteration": it + 1, "sample_ms": r["timers"]["sample_ms"],
+            "sampled_tok_s": n_sampled / (r["timers"]["sample_ms"] / 1e3),
+            "update_ms": r["timers"]["update_ms"],
+            "reward_mean": r["reward_mean"], "reward_std": r["reward_std"],
+            "kl": r["kl"], "pg_loss": r["pg_loss"],
+            "total_loss": r["total_loss"], "mean_logp": r["mean_logp"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts})
+        require(counts == want, f"1b GRPO iteration {it + 1}: launches "
+                f"{counts}, expected {want}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    ref_leaves = tree_leaves(algo.ref_params)
+    ref_intact = len(ref_leaves) == len(init) and all(
+        torch.equal(a, b) for a, b in zip(ref_leaves, init))
+    # the policy's per-layer leaves stacked again, leaf for leaf with init
+    layers = algo.params["layers"]
+    policy = tree_leaves({**algo.params, "layers": {
+        k: torch.stack([lp[k].detach() for lp in layers])
+        for k in layers[0]}})
+    require(len(policy) == len(init), "policy and init trees differ")
+    moved = sum(int((a != b).sum()) for a, b in zip(policy, init))
+    n_elems = sum(t.numel() for t in init)
+    del init, policy
+    saved = _train_counts()
+    window, prof = _profile_window(torch, lambda: algo.train(prompts,
+                                                             even_share))
+    _set_train_counts(saved)
+    emit({"phase": "grpo",
+          "case": "the repo's 1b (16 x 128 heads, untied), full depth, bf16",
+          "n_params": cfg.n_params(), "n_layers": cfg.n_layers,
+          "config": GRPO_1B, "lr": algo.config.lr,
+          "prompt_lens": list(GRPO_PROMPT_LENS), "init_s": init_s,
+          "iterations": iters, "expected_launches_per_iteration": want,
+          "ref_params_bit_equal_to_init": ref_intact,
+          "policy_elements_moved": moved,
+          "policy_elements_moved_share": moved / n_elems,
+          "profiled_iteration": {"wall_ms": window["wall_ms"],
+                                 "sample": _range_busy(prof, "grpo.sample"),
+                                 "update": _range_busy(prof, "grpo.update")},
+          "nvidia_smi": card})
+    require(iters[0]["kl"] == 0.0, f"1b GRPO: iteration 1 KL "
+            f"{iters[0]['kl']}, not 0 (the policy is the reference)")
+    require(all(x["kl"] > 0 and math.isfinite(x["kl"]) for x in iters[1:]),
+            "1b GRPO: the KL is not positive and finite after iteration 1")
+    require(all(math.isfinite(x[k]) for x in iters
+                for k in ("total_loss", "pg_loss", "mean_logp")),
+            "1b GRPO: a loss is not finite")
+    require(ref_intact, "1b GRPO: the reference params moved")
+    require(moved > 0, "1b GRPO: the policy params did not move")
+    del algo, prof
+    return launches
+
+
+def _params_close(got, want):
+    """Params card against CPU, leaf for leaf: (every element within
+    1e-5 abs + 1e-5 rel; the largest difference)."""
+    ok, worst = True, 0.0
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        ok = ok and bool((d <= 1e-5 + 1e-5 * b.abs()).all())
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return ok, worst
+
+
+def _update_on_both(torch, fn, params, extra):
+    """``fn(params_tree, extra)`` on CPU copies and on card copies of the
+    same params (and of ``extra``, a dict of tensors or trees); returns
+    {device: (params after, metrics as floats)}."""
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+    from ray_tpu_torch.rllib.checkpoint import on_device
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = on_device(params, torch.device(dev), grad=True)
+        e = tree_map(lambda t: t.to(dev, copy=True), extra)
+        m = fn(p, e)
+        out[dev] = ([t.detach().cpu() for t in tree_leaves(p)],
+                    {k: float(v) for k, v in m.items()})
+    return out
+
+
+def phase_rl(torch, card):
+    """The MLP learners with the learner on the card and the runners
+    in-process: PPO and APPO on CartPole 3 iterations, IMPALA and DQN 2,
+    SAC on Pendulum 2, BC and MARWIL 2 on rollouts recorded in a temp dir.
+    Each must give finite losses and move its params; then each update is
+    run on the card and on the CPU from the algorithm's params and a batch
+    of its own data (SAC with the same noise), f32 with TF32 off: metrics
+    within 1e-4 relative, every param within 1e-5 abs + 1e-5 rel."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.rllib import (APPOConfig, BCConfig, DQNConfig,
+                                     IMPALAConfig, MARWILConfig, PPOConfig,
+                                     SACConfig, record_rollouts)
+    from ray_tpu_torch.rllib import dqn, impala, offline, ppo, sac
+    from ray_tpu_torch.rllib.checkpoint import host_copy, to_numpy
+    from ray_tpu_torch.train import adamw
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rl_")
+    record_rollouts("CartPole-v1", tmp, num_steps=4096, seed=1)
+    runs = [
+        ("ppo", PPOConfig(), 3), ("appo", APPOConfig(), 3),
+        ("impala", IMPALAConfig(), 2),
+        # learning starts after one 128-step fragment, not 500 steps, so
+        # that both iterations update
+        ("dqn", DQNConfig().training(learning_starts=128), 2),
+        ("sac", SACConfig().training(learning_starts=200), 2),
+        ("bc", BCConfig().offline_data(tmp), 2),
+        ("marwil", MARWILConfig().offline_data(tmp), 2)]
+    np_rng = np.random.default_rng(0)
+    for name, config, n_iter in runs:
+        t0 = time.perf_counter()
+        algo = config.build(device="cuda")
+        before = [t.detach().clone() for t in tree_leaves(algo.params)]
+        results = []
+        for _ in range(n_iter):
+            t1 = time.perf_counter()
+            r = algo.train()
+            torch.cuda.synchronize()
+            results.append((r, (time.perf_counter() - t1) * 1e3))
+        losses = {k: v for k, v in results[-1][0].items()
+                  if "loss" in k}
+        moved = any(not torch.equal(a.detach(), b) for a, b in zip(
+            tree_leaves(algo.params), before))
+        cfg = algo.config
+        params = to_numpy(algo.params)
+        if name in ("ppo", "appo", "impala"):
+            frag = algo.runners[0].sample(256)
+            if name == "ppo":
+                adv, ret = ppo._gae(frag["rewards"], frag["values"],
+                                    frag["dones"], frag["bootstrap_value"],
+                                    cfg.gamma, cfg.lambda_)
+                batch = ppo.batch_to({"obs": frag["obs"],
+                                      "actions": frag["actions"],
+                                      "logp": frag["logp"],
+                                      "advantages": adv, "returns": ret},
+                                     "cpu")
+                steps = cfg.num_epochs * cfg.num_minibatches
+
+                def fn(p, e, cfg=cfg):
+                    return ppo.ppo_update(
+                        p, adamw(cfg.lr, weight_decay=0.0).init(p),
+                        e["batch"], torch.Generator().manual_seed(9), cfg.lr,
+                        clip=cfg.clip_param, vf_coef=cfg.vf_loss_coeff,
+                        ent_coef=cfg.entropy_coeff,
+                        n_minibatches=cfg.num_minibatches,
+                        n_epochs=cfg.num_epochs)[2]
+            else:
+                batch = ppo.batch_to({k: frag[k] for k in (
+                    "obs", "actions", "rewards", "dones", "logp",
+                    "bootstrap_value")}, "cpu")
+                steps = 1
+
+                def fn(p, e, cfg=cfg):
+                    return impala.impala_update(
+                        p, adamw(cfg.lr, weight_decay=0.0).init(p),
+                        e["batch"], cfg.lr, gamma=cfg.gamma,
+                        vf_coef=cfg.vf_loss_coeff,
+                        ent_coef=cfg.entropy_coeff,
+                        rho_bar=cfg.vtrace_rho_clip,
+                        c_bar=cfg.vtrace_c_clip,
+                        clip_param=cfg.clip_param)[2]
+            extra = {"batch": batch}
+        elif name == "dqn":
+            steps = cfg.updates_per_iter
+            extra = {"batch": ppo.batch_to(algo.buffer.sample(
+                np_rng, cfg.train_batch_size * steps), "cpu"),
+                     "target": host_copy(algo.target_params)}
+
+            def fn(p, e, cfg=cfg):
+                return dqn.dqn_update(
+                    p, e["target"], adamw(cfg.lr, weight_decay=0.0).init(p),
+                    e["batch"], cfg.lr, gamma=cfg.gamma,
+                    n_updates=cfg.updates_per_iter)[2]
+        elif name == "sac":
+            steps = cfg.updates_per_iter
+            mb = cfg.train_batch_size
+            extra = {"batch": ppo.batch_to(algo.buffer.sample(
+                np_rng, mb * steps), "cpu"),
+                     "target": host_copy(algo.target),
+                     "noise": torch.randn((steps, 2, mb, algo.act_dim),
+                                          generator=torch.Generator()
+                                          .manual_seed(9))}
+
+            def fn(p, e, cfg=cfg, algo=algo):
+                return sac.sac_update_with_noise(
+                    p, e["target"], adamw(cfg.lr, weight_decay=0.0).init(p),
+                    e["batch"], e["noise"], lr=cfg.lr, gamma=cfg.gamma,
+                    tau=cfg.tau, target_entropy=algo.target_entropy)[3]
+        else:
+            steps = 1
+            idx = np_rng.integers(0, len(algo._data["actions"]),
+                                  cfg.train_batch_size)
+            extra = {"batch": ppo.batch_to(
+                {k: v[idx] for k, v in algo._data.items()}, "cpu")}
+
+            def fn(p, e, cfg=cfg):
+                return offline._marwil_update(
+                    p, adamw(cfg.lr, weight_decay=0.0).init(p), e["batch"],
+                    cfg.lr, beta=cfg.beta, vf_coef=cfg.vf_loss_coeff)[2]
+        both = _update_on_both(torch, fn, params, extra)
+        (p_cpu, m_cpu), (p_card, m_card) = both["cpu"], both["cuda"]
+        m_err = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k]))
+                    for k in m_cpu)
+        p_ok, p_err = _params_close(p_card, p_cpu)
+        emit({"phase": "rl", "algorithm": name, "env": cfg.env,
+              "iterations": n_iter,
+              "iteration_ms": [ms for _, ms in results],
+              "build_s": time.perf_counter() - t0 - sum(
+                  ms for _, ms in results) / 1e3,
+              "losses": losses, "params_moved": moved,
+              "update_card_vs_cpu": {"steps": steps,
+                                     "metrics_max_rel_err": m_err,
+                                     "params_max_abs_err": p_err,
+                                     "params_ok": p_ok},
+              "nvidia_smi": card})
+        require(losses and all(math.isfinite(v) for v in losses.values()),
+                f"rl {name}: a loss is missing or not finite: {losses}")
+        require(moved, f"rl {name}: the params did not move")
+        require(m_err < 1e-4 and p_ok, f"rl {name}: the update on the card "
+                f"differs from the CPU's ({m_err}, {p_err})")
+        algo.stop()
+    return {}
 
 
 # --- phase 5 ---------------------------------------------------------------
@@ -1864,9 +2411,10 @@ def _profile_window(torch, fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device events, less the device-side copies of record_function
-    # ranges (the trainer's "train.*" phases), which span gaps
+    # ranges (the trainer's "train.*" and GRPO's "grpo.*"), which span gaps
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith("train.")]
+    kernels = [e for e in dev
+               if not e.name.startswith(("train.", "grpo."))]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
         return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}, prof
@@ -2076,8 +2624,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
-                  "fleet", "train", "moe", "moe_train", "mamba", "reference",
-                  "timing"]
+                  "fleet", "train", "moe", "moe_train", "mamba", "grpo",
+                  "rl", "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
         card = phase_device(torch)
@@ -2110,13 +2658,16 @@ def main() -> int:
         # empties the cache and starts a new peak
         for name, phase in (("moe", phase_moe),
                             ("moe_train", phase_moe_train),
-                            ("mamba", phase_mamba)):
+                            ("mamba", phase_mamba), ("grpo", phase_grpo),
+                            ("rl", phase_rl)):
             if name in phases:
                 for kernel, n in phase(torch, card).items():
                     launches[kernel] = launches.get(kernel, 0) + n
                 torch.cuda.empty_cache()
         if "reference" in phases:
-            phase_reference(torch)
+            # the head_dim-16 runs (tiny, jamba_tiny, GRPO) count too
+            for kernel, n in phase_reference(torch).items():
+                launches[kernel] = launches.get(kernel, 0) + n
         if "profile" in phases:
             phase_profile(torch)
             torch.cuda.empty_cache()

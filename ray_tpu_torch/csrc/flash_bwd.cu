@@ -68,10 +68,11 @@
 // SMs, one wave). What bounds it now is how much of the tensor cores' time
 // two warpgroups keep busy between syncs and softmax, not the bytes.
 //
-// flash_bwd_dkv_kernel and flash_bwd_dq_kernel (f32, and D = 64): the
-// first version, like flash_fwd.cu's SIMT kernel, with f32 FMAs out of
-// shared memory (no wgmma, no TMA), bound by the f32 FMA rate and shared-
-// memory bandwidth, far from the tensor-core bound; f32 is held at 1e-4.
+// flash_bwd_dkv_kernel and flash_bwd_dq_kernel (f32, and bf16 with D = 16,
+// 32 or 64; f32 also at D = 128): the first version, like flash_fwd.cu's
+// SIMT kernel, with f32 FMAs out of shared memory (no wgmma, no TMA),
+// bound by the f32 FMA rate and shared-memory bandwidth, far from the
+// tensor-core bound; f32 is held at 1e-4.
 // dQ: one CTA of 256 threads per (64-row q tile, b * Hq), looping over the
 // 64-row kv tiles up to the causal diagonal (the mirror of flash_fwd's
 // grid). Each thread owns a 4x4 block of S and dP (both built in one pass
@@ -80,7 +81,9 @@
 // group and, for each, over the q tiles from the first one that sees the
 // tile; each thread owns 4 x D/16 blocks of dK and dV. Tiles are staged in
 // shared memory as f32 with rows padded by one word, so the strided reads
-// of the S/dP loop hit distinct banks.
+// of the S/dP loop hit distinct banks. D maps onto the 16 columns of
+// threads as D / 16 values a thread (1 at D = 16, 2 at 32); the S and dP
+// blocks do not depend on D, and the shared tiles shrink with it.
 //
 // All four take any Sq and Skv: rows and keys past the sequence ends load
 // as zero and are masked by select.
@@ -165,8 +168,16 @@ __device__ __forceinline__ void two_products(const float* A, const float* B,
   }
 }
 
+// At D = 16 and 32 both SIMT kernels declare two CTAs an SM (at most 128
+// registers a thread): with no minimum, ptxas aims at 64-80 registers
+// there and spills. D = 64 and 128 declare 0, which ptxas reads as no
+// minimum (the registers of a build without the argument); a minimum of
+// 1 is not the same: it lets ptxas take more registers.
+template <int D>
+constexpr int min_ctas() { return D <= 32 ? 2 : 0; }
+
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(NT, min_ctas<D>()) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, T* __restrict__ dq, int Sq, int Skv,
@@ -262,7 +273,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(NT, min_ctas<D>())
+flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv,
@@ -903,15 +915,21 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dv = (const float*)dvec;
-  if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, dout, l, dv, dq, B, Sq, Skv, Hq, Hkv,
-                                strides, scale, causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, dout, l, dv, dq, B, Sq, Skv, Hq,
-                                 Hkv, strides, scale, causal, s);
-  if (dtype == 1 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dv, dq, B, Sq, Skv,
-                                        Hq, Hkv, strides, scale, causal, s);
+#define DQ(T, DD) \
+  return launch_dq<T, DD>(q, k, v, dout, l, dv, dq, B, Sq, Skv, Hq, Hkv, \
+                          strides, scale, causal, s)
+  if (dtype == 0) switch (D) {
+    case 16: DQ(float, 16);
+    case 32: DQ(float, 32);
+    case 64: DQ(float, 64);
+    case 128: DQ(float, 128);
+  }
+  if (dtype == 1) switch (D) {
+    case 16: DQ(__nv_bfloat16, 16);
+    case 32: DQ(__nv_bfloat16, 32);
+    case 64: DQ(__nv_bfloat16, 64);
+  }
+#undef DQ
   return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_bwd_dq_tc
 }
 
@@ -942,16 +960,21 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dvc = (const float*)dvec;
-  if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, l, dvc, dk, dv, B, Sq, Skv,
-                                 Hq, Hkv, strides, scale, causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, l, dvc, dk, dv, B, Sq, Skv,
-                                  Hq, Hkv, strides, scale, causal, s);
-  if (dtype == 1 && D == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dvc, dk, dv, B, Sq,
-                                         Skv, Hq, Hkv, strides, scale, causal,
-                                         s);
+#define DKV(T, DD) \
+  return launch_dkv<T, DD>(q, k, v, dout, l, dvc, dk, dv, B, Sq, Skv, Hq, \
+                           Hkv, strides, scale, causal, s)
+  if (dtype == 0) switch (D) {
+    case 16: DKV(float, 16);
+    case 32: DKV(float, 32);
+    case 64: DKV(float, 64);
+    case 128: DKV(float, 128);
+  }
+  if (dtype == 1) switch (D) {
+    case 16: DKV(__nv_bfloat16, 16);
+    case 32: DKV(__nv_bfloat16, 32);
+    case 64: DKV(__nv_bfloat16, 64);
+  }
+#undef DKV
   return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_bwd_dkv_tc
 }
 

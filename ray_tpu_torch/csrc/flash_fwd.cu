@@ -42,16 +42,19 @@
 // warpgroups keep busy between the softmax and the per-tile sync, not the
 // bytes.
 //
-// flash_fwd_kernel (f32, and D = 64): the first version, with f32 FMAs
-// out of shared memory (no wgmma, no TMA), bound by shared-memory
-// bandwidth and the f32 FMA rate, far from the tensor-core bound; the
-// tests hold f32 at 1e-4, which a tensor-core path cannot. One CTA of 256
+// flash_fwd_kernel (f32, and bf16 with D = 16, 32 or 64; f32 also at
+// D = 128): the first version, with f32 FMAs out of shared memory (no
+// wgmma, no TMA), bound by shared-memory bandwidth and the f32 FMA rate,
+// far from the tensor-core bound; the tests hold f32 at 1e-4, which a
+// tensor-core path cannot. One CTA of 256
 // threads per (64-row q tile, b * Hq) loops over 64-row kv tiles, skipping
 // tiles wholly above the causal diagonal. Q, K and V tiles are staged in
 // shared memory as f32 (rows are padded by one word so the strided reads
 // of the QK^T loop hit distinct banks); each thread owns a 4x4 block of S
 // and a 4 x D/16 block of O. The online-softmax row statistics live in
-// shared memory, one warp per eight rows.
+// shared memory, one warp per eight rows. D maps onto the 16 columns of
+// threads as D / 16 values a thread (1 at D = 16, 2 at 32), and the shared
+// tiles shrink with D.
 //
 // Both take any Sq and Skv and strided [B, S, H, D] inputs without a
 // transposed copy: rows and keys past the sequence ends load as zero and
@@ -82,8 +85,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
+// With no minimum of CTAs an SM, ptxas aims at 80 registers and spills
+// at D = 128 (f32), where the shared tiles allow one CTA an SM anyway: a
+// minimum of 1 lets it take what it needs. The other widths declare 0,
+// which ptxas reads as no minimum.
+template <int D>
+constexpr int min_ctas() { return D == 128 ? 1 : 0; }
+
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+__global__ void __launch_bounds__(NT, min_ctas<D>()) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse,
     int Sq, int Skv, int Hq, int Hkv,
@@ -486,15 +496,21 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          float scale, int causal, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, strides,
-                             scale, causal, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, strides,
-                              scale, causal, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv,
-                                     strides, scale, causal, s);
+#define FWD(T, DD) \
+  return launch<T, DD>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, strides, scale, \
+                       causal, s)
+  if (dtype == 0) switch (D) {
+    case 16: FWD(float, 16);
+    case 32: FWD(float, 32);
+    case 64: FWD(float, 64);
+    case 128: FWD(float, 128);
+  }
+  if (dtype == 1) switch (D) {
+    case 16: FWD(__nv_bfloat16, 16);
+    case 32: FWD(__nv_bfloat16, 32);
+    case 64: FWD(__nv_bfloat16, 64);
+  }
+#undef FWD
   return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_fwd_tc
 }
 

@@ -49,6 +49,12 @@
 //     P V takes one lane per hd/32 dims, V widened in registers and P kept
 //     in f32 (shared memory, per warp). At a few flops a byte the work
 //     needs no tensor cores.
+//   - Small heads (hd 16 and 32, `tiny` and `jamba_tiny`): a K or V row is
+//     2-8 chunks, so the swizzle period shrinks to the row's chunks, and
+//     in P V, where hd/32 lanes would be 0 or under 4 bytes a lane, the
+//     warp splits into groups that each take every G-th row of the tile,
+//     one 4-byte (or wider) slice of it a lane; the groups' sums are
+//     added by shuffles after the last tile.
 //   - The four warps' states are merged through shared memory in warp
 //     order; a second small launch merges the splits of each (b, g): it
 //     rescales split i by exp(m_i - m) (weight exactly 0 for a split with
@@ -126,15 +132,22 @@ struct Params {
 };
 
 // K/V tiles in shared memory: per warp STAGES stages of ROWS rows of K
-// then ROWS rows of V, each row's 16-byte chunk c stored at c ^ (row % 8)
+// then ROWS rows of V, each row's 16-byte chunk c stored at c ^ (row % SW),
+// SW the row's chunks up to 8 (2 for a bf16 row of 16 dims)
 template <typename T, int HD>
 struct Tiles {
   static constexpr int RB = HD * (int)sizeof(T);   // bytes of a K or V row
   static constexpr int NC = RB / 16;               // 16-byte chunks a row
   static constexpr int EPC = 16 / (int)sizeof(T);  // elements a chunk
+  static constexpr int SW = NC < 8 ? NC : 8;       // swizzle period, rows
   static constexpr int STAGE = ROWS * RB;          // K (or V) of one tile
   static constexpr int KV_BYTES = NWARP * STAGES * 2 * STAGE;
-  static_assert((ROWS * NC) % 32 == 0 && NC >= 8, "whole chunks per lane");
+  static_assert((ROWS * NC) % 32 == 0 && NC >= 2, "whole chunks per lane");
+
+  // byte offset of chunk c of tile row `row`
+  static __device__ __forceinline__ int at(int row, int c) {
+    return row * RB + ((c ^ (row & (SW - 1))) << 4);
+  }
 };
 
 // What one CTA (kv head g, sequence b, split z) reads: positions
@@ -218,7 +231,7 @@ struct SplitCta {
           !ok ? 0
               : (whole_tiles ? base + row * pos_stride : row_off(t0 + row)) +
                     c * C::EPC;
-      const uint32_t dst = row * C::RB + ((c ^ (row & 7)) << 4);
+      const uint32_t dst = C::at(row, c);
       cp_async_16(kd + dst, ksrc + off, ok ? 16 : 0);
       cp_async_16(vd + dst, vsrc + off, ok ? 16 : 0);
     }
@@ -286,13 +299,20 @@ __device__ __forceinline__ void for_each_tile(const SplitCta<T, HD>& cta,
 }
 
 // One split of one (b, g), SIMT FMAs in f32 for both dtypes. R: rep
-// rounded up to 4, 8 or 16 (padding q rows zero).
+// rounded up to 4, 8 or 16 (padding q rows zero). In P V each lane
+// accumulates DPL dims (at least 4 bytes of a V row); at HD >= 64 the warp
+// spans a row and walks the tile's rows in turn, at HD = 16 or 32 it is G
+// groups of HD / DPL lanes, group i taking rows i, i + G, ..., and the
+// groups' sums are added up (in a fixed order) at the end.
 template <typename T, int HD, int R>
 __global__ void __launch_bounds__(NT, 1)
     paged_decode_split_kernel(const Params a) {
   using C = Tiles<T, HD>;
   constexpr int HALF = C::NC / 2;   // chunks a lane scores
-  constexpr int DPL = HD / 32;      // dims a lane accumulates
+  constexpr int DPL = HD / 32 * (int)sizeof(T) >= 4 ? HD / 32
+                                                    : 4 / (int)sizeof(T);
+  constexpr int LPG = HD / DPL;     // lanes a group, one V row
+  constexpr int G = 32 / LPG;       // groups: V rows a step
   static_assert(NWARP * R * (HD + 2) * 4 <= C::KV_BYTES, "merge area");
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + C::KV_BYTES);  // [R][HD]
@@ -320,7 +340,8 @@ __global__ void __launch_bounds__(NT, 1)
   }
   float* pw = Ps + warp * ROWS * R;
   const int j = lane & (ROWS - 1), h = lane >> 4;   // score phase: row, half
-  const int ob = lane * DPL * (int)sizeof(T);      // P V phase: byte offset
+  const int grp = lane / LPG;                      // P V phase: row group,
+  const int ob = lane % LPG * DPL * (int)sizeof(T);  // byte offset in a row
   unsigned char* wbuf = smem + warp * STAGES * 2 * C::STAGE;
 
   for_each_tile(cta, wbuf, warp, lane, [&](const unsigned char* kb,
@@ -334,7 +355,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int cc = 0; cc < HALF; ++cc) {
       const int c = h * HALF + cc;
       float kf[C::EPC];
-      load_row<T>(kb + j * C::RB + ((c ^ (j & 7)) << 4), kf);
+      load_row<T>(kb + C::at(j, c), kf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float4* qp =
@@ -368,11 +389,10 @@ __global__ void __launch_bounds__(NT, 1)
       if (h == 0) pw[j * R + r] = p;
     }
     __syncwarp();
-    // P V: this lane's DPL dims of every query row
-    for (int jj = 0; jj < nvalid; ++jj) {
+    // P V: this lane's DPL dims of every query row, its group's rows
+    for (int jj = grp; jj < nvalid; jj += G) {
       float vf[DPL];
-      load_row<T>(vb + jj * C::RB + (((ob >> 4) ^ (jj & 7)) << 4) + (ob & 15),
-                  vf);
+      load_row<T>(vb + C::at(jj, ob >> 4) + (ob & 15), vf);
       const float4* pp = reinterpret_cast<const float4*>(pw + jj * R);
 #pragma unroll
       for (int r4 = 0; r4 < R / 4; ++r4) {
@@ -389,10 +409,17 @@ __global__ void __launch_bounds__(NT, 1)
   });
 
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       l[r] += __shfl_xor_sync(FULL, l[r], off);
+    // the groups' sums of P V (G = 1 at HD >= 64: nothing to add)
+#pragma unroll
+    for (int off = LPG; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        acc[r][e] += __shfl_xor_sync(FULL, acc[r][e], off);
+  }
 
   // merge the four warps through the (now free) K/V area
   __syncthreads();
@@ -406,11 +433,13 @@ __global__ void __launch_bounds__(NT, 1)
       redl[warp * R + r] = l[r];
     }
   }
+  if (grp == 0) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      reda[(warp * R + r) * HD + lane * DPL + e] = acc[r][e];
+      for (int e = 0; e < DPL; ++e)
+        reda[(warp * R + r) * HD + ob / (int)sizeof(T) + e] = acc[r][e];
+  }
   __syncthreads();
   merge_warps<HD, R>(redm, redl, reda, a.rep, cta.pacc, cta.pml, tid);
 }
@@ -528,9 +557,17 @@ extern "C" int paged_decode(const void* q, const void* ck, const void* cv,
                  page_size, n_pages, K, pages_per_split, n_splits, scale};
   cudaStream_t s = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
-  if (dtype == 0 && hd == 64) return launch_rep<float, 64>(a, s);
-  if (dtype == 0 && hd == 128) return launch_rep<float, 128>(a, s);
-  if (dtype == 1 && hd == 64) return launch_rep<bf16, 64>(a, s);
-  if (dtype == 1 && hd == 128) return launch_rep<bf16, 128>(a, s);
+  if (dtype == 0) switch (hd) {
+    case 16: return launch_rep<float, 16>(a, s);
+    case 32: return launch_rep<float, 32>(a, s);
+    case 64: return launch_rep<float, 64>(a, s);
+    case 128: return launch_rep<float, 128>(a, s);
+  }
+  if (dtype == 1) switch (hd) {
+    case 16: return launch_rep<bf16, 16>(a, s);
+    case 32: return launch_rep<bf16, 32>(a, s);
+    case 64: return launch_rep<bf16, 64>(a, s);
+    case 128: return launch_rep<bf16, 128>(a, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

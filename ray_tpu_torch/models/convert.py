@@ -5,7 +5,10 @@ The input is the JAX tree with its leaves already turned into numpy
 arrays (``jax.tree.map(np.asarray, params)``), so this module needs
 neither JAX nor ``ray_tpu``. bf16 leaves arrive as ``ml_dtypes.bfloat16``
 arrays, which torch cannot take; they go through float32 (exact) and back
-to bfloat16. Quantized ``{"q", "s"}`` leaves convert leaf for leaf.
+to bfloat16. Quantized ``{"q", "s"}`` leaves convert leaf for leaf. Trees
+may hold lists (an RL policy's ``params["layers"]``), kept as lists, and
+Python float leaves (SAC's initial ``log_alpha``), which become f32 as JAX
+weak-types them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ from ..train.optim import AdamState
 
 def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
+    if arr.dtype == np.float64:
+        # JAX (without x64) holds no f64 array: this is a Python float
+        # leaf, which JAX weak-types to f32
+        arr = arr.astype(np.float32)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=dev, dtype=torch.bfloat16)
@@ -29,13 +36,15 @@ def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device=None):
-    """Nested dict of numpy leaves → the same nested dict of tensors on
+    """Nested dicts and lists of numpy leaves → the same tree of tensors on
     ``device`` (default: the CUDA card)."""
     dev = resolve_device(device)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
         return _leaf(node, dev)
 
     return walk(tree)
@@ -54,7 +63,8 @@ def lora_from_jax(adapter, device=None):
 
 def _find_adam_state(node):
     """optax's ``ScaleByAdamState(count, mu, nu)`` inside the chained
-    state of ``optax.adamw`` (the other states of the chain are empty)."""
+    state of ``optax.adamw`` or ``optax.adam`` (the other states of the
+    chain are empty)."""
     if all(hasattr(node, f) for f in ("count", "mu", "nu")):
         return node
     if isinstance(node, (tuple, list)):
@@ -66,16 +76,19 @@ def _find_adam_state(node):
 
 
 def opt_state_from_jax(opt_state, params, device=None) -> AdamState:
-    """optax ``adamw`` state with numpy leaves → the port's
-    :class:`AdamState` for ``params`` (the trainer's tree): mu and nu
-    leaf for leaf, split per layer where ``params`` is, and optax's
+    """optax ``adamw`` or ``adam`` state with numpy leaves → the port's
+    :class:`AdamState` for ``params`` (the trainer's tree, or an RL
+    learner's): mu and nu leaf for leaf, split per layer where ``params``
+    stacks layers and the trainer's tree splits them, and optax's
     ``count``, so a run resumes with the same bias correction."""
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState(count, mu, nu) in the state")
     mu = params_from_jax(adam.mu, device)
     nu = params_from_jax(adam.nu, device)
-    if isinstance(params["layers"], (list, tuple)):
+    if isinstance(params.get("layers"), (list, tuple)):
+        # stacked groups are split; a group that is a list already (an RL
+        # policy's) is left as it is
         mu, nu = unstack_layers(mu), unstack_layers(nu)
     for p, m, n in zip(tree_leaves(params), tree_leaves(mu),
                        tree_leaves(nu), strict=True):

@@ -35,6 +35,9 @@ ENTRIES = {"flash_fwd": ("flash_fwd", "flash_fwd_tc"),
            "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_tc", "flash_bwd_dkv",
                          "flash_bwd_dkv_tc"),
            "paged_decode": ("paged_decode",)}
+# the head dims every flash and paged kernel is built for, in f32 and bf16
+# (the instantiations in each source's C entry points)
+HEAD_DIMS = (16, 32, 64, 128)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -2,8 +2,9 @@
 whose forward (``csrc/flash_fwd.cu``) and two backward kernels
 (``csrc/flash_bwd.cu``, dQ and dK/dV) launch on CUDA tensors, while CPU
 tensors run their plain versions. Each of the three has a tensor-core
-kernel for bf16 with head_dim 128 and a SIMT kernel for f32 and head_dim
-64; :func:`_route` picks one.
+kernel for bf16 with head_dim 128 and a SIMT kernel for the rest (f32, and
+head_dim 16, 32 and 64); :func:`_route` picks one. The head dims the
+kernels take are :data:`HEAD_DIMS`; any other raises on the card.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Layouts: q [B, Sq, Hq, D];
 k/v [B, Skv, Hkv, D]; GQA maps q head h to kv head h // (Hq // Hkv).
@@ -114,6 +115,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = _kernels.HEAD_DIMS
 
 
 def _check_flash_inputs(q, k, v):
@@ -143,8 +145,9 @@ def _route(kernel: str, **tensors) -> str:
     128 whose tensors start at 16-byte-aligned addresses and have (batch,
     seq, head) strides in multiples of 8 elements (16 bytes; a dimension
     of size 1 is never stepped, so its stride does not count); ``"simt"``
-    for every other dtype and head_dim (f32, head_dim 64). Raises for bf16
-    with head_dim 128 that is not so aligned: there is no fallback.
+    for every other dtype and head_dim (f32; head_dim 16, 32, 64). Raises
+    for bf16 with head_dim 128 that is not so aligned: there is no
+    fallback.
     Whether the kernels take the dtype and head_dim at all is the
     wrapper's check."""
     q = next(iter(tensors.values()))
@@ -179,8 +182,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     :func:`fwd_route` picks (the tensor-core kernel for bf16 with head_dim
     128, the SIMT kernel otherwise, both in ``csrc/flash_fwd.cu``), or
     raises for what neither takes (dtype other than f32/bf16, head_dim
-    other than 64/128, a head_dim stride other than 1, misaligned bf16
-    with head_dim 128); on a CPU tensor it runs
+    outside :data:`HEAD_DIMS`, a head_dim stride other than 1, misaligned
+    bf16 with head_dim 128); on a CPU tensor it runs
     :func:`flash_attention_reference`. Returns O, or (O, LSE)."""
     _check_flash_inputs(q, k, v)
     if q.device.type == "cpu":
@@ -191,9 +194,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if q.dtype not in _FLASH_DTYPES or d not in (64, 128):
+    if q.dtype not in _FLASH_DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes f32/bf16 with "
-                         f"head_dim 64 or 128, got {q.dtype}, {d}")
+                         f"head_dim in {HEAD_DIMS}, got {q.dtype}, {d}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel needs head_dim stride 1")
     if b * hq > 65535:
@@ -304,9 +307,9 @@ def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("flash backward: dO must match q in shape, dtype "
                          "and device")
-    if q.dtype not in _FLASH_DTYPES or d not in (64, 128):
+    if q.dtype not in _FLASH_DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"flash backward kernels take f32/bf16 with "
-                         f"head_dim 64 or 128, got {q.dtype}, {d}")
+                         f"head_dim in {HEAD_DIMS}, got {q.dtype}, {d}")
     if any(t.stride(3) != 1 for t in (q, k, v, do)):
         raise ValueError("flash backward kernels need head_dim stride 1")
     for name, t in (("lse", lse), ("dvec", dvec)):

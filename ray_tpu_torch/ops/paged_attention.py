@@ -82,6 +82,7 @@ def _num_sms(index):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = _kernels.HEAD_DIMS
 
 
 def paged_decode_attention(q, cache_k, cache_v, new_k, new_v,
@@ -113,11 +114,11 @@ def paged_decode_attention(q, cache_k, cache_v, new_k, new_v,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention: tensors must be "
                          "contiguous")
-    if (q.dtype not in _DTYPES or hd not in (64, 128) or not 1 <= rep <= 16
+    if (q.dtype not in _DTYPES or hd not in HEAD_DIMS or not 1 <= rep <= 16
             or any(t.dtype != q.dtype for t in tensors[1:5])):
         raise ValueError(f"paged_decode_attention kernel takes f32/bf16, "
-                         f"head_dim 64/128, rep <= 16; got {q.dtype}, "
-                         f"{hd}, {rep}")
+                         f"head_dim in {HEAD_DIMS}, rep <= 16; got "
+                         f"{q.dtype}, {hd}, {rep}")
     if any(t.dtype != torch.int32 for t in tensors[5:]):
         raise ValueError("paged_decode_attention: block_tables, ctx_len "
                          "and new_len must be int32")

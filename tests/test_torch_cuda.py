@@ -634,3 +634,137 @@ def test_jamba_step_launches_flash_kernels_on_card(gen):
     assert got == {"flash_attention": (2, 2), "flash_bwd_dq": (1, 1),
                    "flash_bwd_dkv": (1, 1)}
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_head_dims_match_plain_versions_on_card(gen, D, dtype):
+    """head_dim 16 (`tiny`, `jamba_tiny`) and 32 through the SIMT flash
+    kernels and the paged kernel, f32 at 1e-4, bf16 as above: forward
+    (rows that see no key give 0), dQ and dK/dV, and paged decode at rep 1,
+    4 and 8 with a row that is empty and a ragged page."""
+    tol = dict(atol=1e-4, rtol=1e-4)
+    q, k, v = (_randn(gen, (2, 96, h, D), dtype) for h in (4, 2, 2))
+    k, v = k[:, :64], v[:, :64]
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, **tol)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=5e-3, rtol=5e-3)
+    assert out[:, :32].float().abs().max() == 0
+    args = _bwd_args(gen, 2, 100, 100, 4, 2, D, True, dtype)
+    got = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    want = (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
+    for g, w in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, **tol)
+        else:
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err < 2e-2, err
+    for rep in (1, 4, 8):
+        args = _paged_args(gen, 3, 2, rep, D, 16, 4, 4, dtype)
+        args[6] = torch.tensor([0, 37, 64], dtype=torch.int32, device="cuda")
+        args[7] = torch.tensor([0, 2, 4], dtype=torch.int32, device="cuda")
+        got = paged_decode_attention(*args)
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                got, paged_decode_attention_reference(*args), **tol)
+        else:
+            _assert_bf16_rounding_of_f32(got, args)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        assert torch.equal(got, paged_decode_attention(*args))
+
+
+@pytest.mark.parametrize("D", [8, 48, 256])
+def test_head_dims_outside_the_kernels_raise_on_card(gen, D):
+    q = _randn(gen, (1, 16, 2, D))
+    f0, p0 = flash_attention.launches, paged_decode_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    lse = torch.zeros((1, 2, 16), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bwd_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(*_paged_args(gen, 2, 2, 2, D, 16, 2, 4,
+                                            torch.float32))
+    assert (flash_attention.launches, paged_decode_attention.launches) == (
+        f0, p0)
+
+
+def test_grpo_update_on_card_matches_cpu(gen):
+    """One GRPO update of `tiny` (f32, head_dim 16) on a batch of distinct
+    rows, on the card through the flash kernels and on the CPU through
+    their plain versions, from the same weights: losses at 1e-5, KL
+    exactly 0 (the policy is the reference), the gradients at 1e-5 of
+    their largest entry, and 2L forward, L dQ and L dK/dV launches."""
+    from ray_tpu_torch.models import LLAMA_CONFIGS
+    from ray_tpu_torch.rllib.grpo import _grpo_loss, _grpo_update
+
+    cfg = LLAMA_CONFIGS["tiny"]
+    params = init_params(cfg, seed=2, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (6, 20), generator=g,
+                                     dtype=torch.int32),
+             "mask": (torch.rand(6, 20, generator=g) > 0.3).float(),
+             "advantages": torch.randn(6, generator=g)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(),
+                     params)
+        ref = tree_map(lambda t: t.to(dev, copy=True), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = _grpo_loss(p, ref, b, 0.1, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        before = (flash_attention.launches, flash_bwd_dq.launches,
+                  flash_bwd_dkv.launches)
+        _, _, m = _grpo_update(p, ref, adamw(1e-3, weight_decay=0.0).init(p),
+                               b, 1e-3, kl_coef=0.1, cfg=cfg)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [x.cpu() for x in grads],
+                    (flash_attention.launches - before[0],
+                     flash_bwd_dq.launches - before[1],
+                     flash_bwd_dkv.launches - before[2]))
+    (m0, g0, _), (m1, g1, n1) = out["cpu"], out["cuda"]
+    assert m1["kl"] == m0["kl"] == 0.0
+    for k in m0:
+        assert abs(m1[k] - m0[k]) <= 1e-5 * max(1.0, abs(m0[k])), k
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
+                                   rtol=0)
+    L = cfg.n_layers
+    assert n1 == (2 * L, L, L)
+
+
+def test_ppo_update_on_card_matches_cpu(gen):
+    """One PPO iteration (2 epochs of 2 minibatches, the shuffle from a CPU
+    generator of the same seed) on the card and on the CPU from the same
+    params and batch, f32 without TF32: losses and params at 1e-5."""
+    from ray_tpu_torch.rllib import ppo
+    from ray_tpu_torch.rllib.checkpoint import on_device, to_numpy
+
+    params = ppo.init_policy(torch.Generator().manual_seed(0), 4, 2,
+                             (64, 64))
+    g = torch.Generator().manual_seed(1)
+    batch = {"obs": torch.randn(256, 4, generator=g),
+             "actions": torch.randint(0, 2, (256,), generator=g),
+             "logp": torch.log(torch.rand(256, generator=g) * 0.4 + 0.3),
+             "advantages": torch.randn(256, generator=g),
+             "returns": torch.randn(256, generator=g)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = on_device(params, torch.device(dev), grad=True)
+        _, _, m = ppo.ppo_update(
+            p, adamw(3e-4, weight_decay=0.0).init(p),
+            {k: v.to(dev) for k, v in batch.items()},
+            torch.Generator().manual_seed(5), 3e-4, clip=0.2, vf_coef=0.5,
+            ent_coef=0.01, n_minibatches=2, n_epochs=2)
+        out[dev] = ({k: float(v) for k, v in m.items()}, to_numpy(p))
+    (m0, p0), (m1, p1) = out["cpu"], out["cuda"]
+    for k in m0:
+        assert abs(m1[k] - m0[k]) <= 1e-5 * max(1.0, abs(m0[k])), k
+    for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+        torch.testing.assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                                   atol=1e-5, rtol=1e-5)

@@ -54,7 +54,9 @@ def test_the_walk_covers_every_model_family():
     mods = _port_modules()
     for m in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.ssd",
               "ray_tpu_torch.models.mamba", "ray_tpu_torch.ops.attention",
-              "ray_tpu_torch.llm.engine"):
+              "ray_tpu_torch.llm.engine", "ray_tpu_torch.rllib",
+              "ray_tpu_torch.rllib.grpo", "ray_tpu_torch.rllib.ppo",
+              "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.checkpoint"):
         assert m in mods, m
 
 
@@ -127,6 +129,12 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         LLMEngine(params, TINY, EngineConfig(
             max_num_seqs=1, page_size=4, num_pages=32, max_seq_len=32))
+    # the RL algorithms' learners too
+    from ray_tpu_torch.rllib import GRPOConfig, PPOConfig, SACConfig
+
+    for config in (PPOConfig(), SACConfig(), GRPOConfig()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config.build()
     # asked for explicitly, the CPU works
     assert resolve_device("cpu") == torch.device("cpu")
     assert ray_tpu_torch.resolve_device is resolve_device
