@@ -27,6 +27,12 @@ Phases, one JSON line each on stdout:
      fleet   - a prefill engine exports the 4 longest prompts after their
                first token; a second engine injects them and decodes 32
                tokens each with no prefill.
+     hf      - the same weights written as an HF safetensors checkpoint
+               (save_hf_checkpoint, Meta-Llama-3-8B's layout, 16.1 GB),
+               loaded back bit-equal and served on the engine phase's
+               schedule (the same 8 streams), then loaded as host-int8
+               (equal to quantize_params on the card) and served: write
+               and load GB/s, int8 TTFT, tok/s and peak memory.
   5. train   - Llama-3-8B (full width and depth, bf16, seed 7, remat
                "full") trained by make_train_step with AdamW at B=1,
                S=2048: one warm-up step, then 3 timed steps on one batch;
@@ -40,6 +46,11 @@ Phases, one JSON line each on stdout:
      mamba   - Mamba-2 130m and Jamba 350m (full size, bf16) trained 1+3
                steps at B=4, S=2048: the loss falls, gradients finite,
                Jamba's attention through all three flash kernels.
+     clip    - CLIP ViT-B/16 (bf16, remat) trained 1+3 steps on B=128 toy
+               pairs: the loss falls, its 24 attention layers through the
+               three SIMT D=64 flash kernels; a traced step's busy share.
+     resnet  - ResNet-18 (bf16) at 32x32, 10 classes, trained 1+3 steps at
+               B=256: the loss falls (no kernel of the port runs).
      grpo    - GRPO RLHF: the default `tiny` config raises its reward on
                the token-7 objective in 13 iterations; Llama 1b (full
                width and depth, bf16, seed 7) 3 iterations of G=8 over 4
@@ -55,8 +66,11 @@ Phases, one JSON line each on stdout:
                inject), and the same losses and params; the same with 4
                experts (plain, chunked and gather streams, training), and
                a small f32 Jamba trained; `tiny` (head_dim 16) served and
-               trained, `jamba_tiny` trained, and GRPO on `tiny`.
-  8. timing  - kernel, plain-version and library times, and the bound.
+               trained, `jamba_tiny` trained, and GRPO on `tiny`; `tiny`
+               CLIP and ResNet trained 3 steps (every param within 1e-5),
+               and `tiny` saved, loaded and served from the checkpoint.
+  8. timing  - kernel, plain-version and library times, and the bound;
+               the three flash kernels also at CLIP's D=64 vision shape.
 A comma-separated list of phases runs only those and prints no result;
 `profile`, `profile_train` and `profile_moe` (not in the default run)
 trace, with torch.profiler, one 511-token prefill and a decode burst at
@@ -215,6 +229,10 @@ FLASH_CASES = [
     ("grpo_1b_sample_s37", 8, 37, 37, 16, 8, 128, True, "bf16", False),
     ("grpo_1b_sample_s48", 8, 48, 48, 16, 8, 128, True, "bf16", False),
     ("grpo_1b_update", 32, 48, 48, 16, 8, 128, True, "bf16", False),
+    # the clip phase's ViT-B/16 towers (bf16, head_dim 64: the SIMT route):
+    # q, k and v are views of one (B, S, 3, H, 64) projection output
+    ("clip_b16_vision", 128, 197, 197, 12, 12, 64, False, "bf16", True),
+    ("clip_b16_text", 128, 77, 77, 8, 8, 64, True, "bf16", True),
 ]
 
 BWD_CASES = [
@@ -235,6 +253,8 @@ BWD_CASES = [
     ("d32_f32_non_causal", 1, 130, 200, 4, 1, 32, False, "f32"),
     ("d32_bf16", 2, 200, 200, 8, 2, 32, True, "bf16"),
     ("grpo_1b_update", 32, 48, 48, 16, 8, 128, True, "bf16"),
+    ("clip_b16_vision", 128, 197, 197, 12, 12, 64, False, "bf16"),
+    ("clip_b16_text", 128, 77, 77, 8, 8, 64, True, "bf16"),
 ]
 
 # B, kvh, rep, hd, page, n_pages, K
@@ -1091,6 +1111,125 @@ def phase_fleet(torch, card):
             "paged_decode": counts["paged_decode"]}
 
 
+def _tree_bit_equal(torch, got, want):
+    """Two trees of tensors: the same structure, dtypes and bits."""
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+
+    try:
+        tree_map(lambda a, b: None, got, want)
+    except (KeyError, IndexError, TypeError):
+        return False
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _host_peak_gb():
+    """The process's peak resident host memory so far (ru_maxrss, KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6 * 1.024
+
+
+def phase_hf(torch, card):
+    """The checkpoint door at full width and depth: the engine phase's
+    Llama-3-8B weights (bf16, seed 7) written by save_hf_checkpoint in
+    config_to_hf's layout (Meta-Llama-3-8B's config.json widths) into a
+    temporary directory, loaded back by load_hf_checkpoint bit-equal and
+    served on the engine phase's schedule (the 8 greedy streams must equal
+    its own); then loaded with quantize="int8" (rounded and quantized on
+    the host), every int8 value and scale bit-equal to quantize_params run
+    on the card over the loaded bf16 tree, and served the same way (TTFT,
+    decode tok/s at B=8, peak memory; the share of tokens equal to the bf16
+    streams is reported, not required). The directory is deleted at the
+    end; too little free disk fails the phase, naming the free bytes."""
+    import os
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.models.hf_interop import (load_hf_checkpoint,
+                                                 save_hf_checkpoint)
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+    from ray_tpu_torch.ops.quant import quantize_params
+
+    cfg = LLAMA_CONFIGS["8b"]
+    params, _ = _serving_params(torch)
+    if "streams" not in _SERVING:     # a run without the engine phase
+        _SERVING["streams"] = _serve(torch, cfg, params, 64)[2]
+    want_streams = _SERVING["streams"]
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    tmp = tempfile.mkdtemp(prefix="hf-llama3-8b-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        emit({"phase": "hf_disk", "dir": tmp, "free_bytes": free,
+              "checkpoint_bytes": nbytes})
+        require(free > nbytes + 2 ** 30,
+                f"hf: {free} bytes free in {tmp}, the 8B checkpoint needs "
+                f"{nbytes}")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(params, cfg, tmp)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(os.path.join(tmp, "model.safetensors"))
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loaded, lcfg = load_hf_checkpoint(tmp, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = _tree_bit_equal(torch, loaded, params) and lcfg == cfg
+        emit({"phase": "hf_load", "dtype": "bf16",
+              "loaded_equals_saved": same})
+        require(same, "hf: the loaded 8B tree differs from the saved one")
+        # the loaded tree serves from here on: the engine phase's copy goes
+        del params
+        _SERVING.pop("params")
+        _fresh_phase(torch)
+        engine, _, streams, launches, bf16 = _serve(torch, cfg, loaded, 64)
+        del engine
+        n_same = sum(a == b for a, b in zip(streams, want_streams))
+        require(n_same == len(want_streams) == 8,
+                f"hf: {n_same} of 8 greedy streams from the loaded weights "
+                f"equal the engine phase's")
+
+        host_before = _host_peak_gb()
+        t0 = time.perf_counter()
+        q8, _ = load_hf_checkpoint(tmp, quantize="int8", device="cuda")
+        torch.cuda.synchronize()
+        int8_load_s = time.perf_counter() - t0
+        host_peak = _host_peak_gb()
+        on_card = quantize_params(loaded, cfg)
+        q8_same = _tree_bit_equal(torch, q8, on_card)
+        del on_card, loaded
+        require(q8_same, "hf: the host-int8 tree differs from "
+                "quantize_params on the card")
+        _fresh_phase(torch)
+        engine, _, q8_streams, q8_launches, int8 = _serve(torch, cfg, q8, 64)
+        q8_peak = torch.cuda.max_memory_allocated() / 1e9
+        del engine, q8
+        equal = sum(x == y for a, b in zip(q8_streams, streams)
+                    for x, y in zip(a, b))
+        emit({"phase": "hf", "model": "llama3-8b", "layout": "config_to_hf "
+              "(Meta-Llama-3-8B config.json widths)",
+              "file_bytes": file_bytes, "write_s": write_s,
+              "write_gb_s": file_bytes / write_s / 1e9,
+              "load_s": load_s, "load_gb_s": file_bytes / load_s / 1e9,
+              "int8_load_s": int8_load_s,
+              "int8_load_gb_s": file_bytes / int8_load_s / 1e9,
+              "host_peak_gb_before_int8": host_before,
+              "host_peak_gb": host_peak,
+              "bf16_streams_equal_engine": n_same,
+              "int8_equals_card_quantize": q8_same,
+              "bf16": bf16, "int8": int8, "int8_peak_mem_gb": q8_peak,
+              "int8_tokens_equal_bf16_share": equal / sum(map(len, streams)),
+              "launches": {k: launches[k] + q8_launches[k]
+                           for k in launches},
+              "nvidia_smi": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: launches[k] + q8_launches[k] for k in launches}
+
+
 def _train_wrappers():
     from ray_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                              flash_bwd_dq)
@@ -1247,8 +1386,13 @@ def _mixtral_cfg(torch, n_layers):
 
 
 def _fresh_phase(torch):
-    """Free what earlier phases left cached and start a new peak."""
+    """Free what earlier phases left (an engine in a reference cycle keeps
+    its weights until the collector runs) and cached, and start a new
+    peak."""
+    import gc
+
     torch.cuda.synchronize()
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1429,6 +1573,119 @@ def phase_mamba(torch, card):
     return launches
 
 
+# --- the vision families: CLIP ViT-B/16 and ResNet-18 -----------------------
+
+CLIP_B, RESNET_B, RESNET_SIZE = 128, 256, 32
+
+
+def _clip_batch(torch, cfg, B, seed=7):
+    """B toy (image, text) pairs after tests/test_mamba_clip.py's
+    test_clip_contrastive_learning, seeded: each image a faint random
+    colour with a bright 4-row block (its row set by the index, in one of
+    3 channels); each text a distinct caption token and a colour token,
+    padded with 0 to cfg.max_text."""
+    g = torch.Generator().manual_seed(seed)
+    s = cfg.image_size
+    images = (torch.randn(B, 1, 1, 3, generator=g) * 0.1).expand(
+        B, s, s, 3).clone()
+    tokens = torch.zeros(B, cfg.max_text, dtype=torch.int32)
+    for i in range(B):
+        row = (i * 4) % s
+        images[i, row:row + 4, :, i % 3] = 1.0
+        tokens[i, 0] = 1 + i % (cfg.vocab - 1)
+        tokens[i, 1] = 2 + i % 3
+    return {"images": images, "tokens": tokens}
+
+
+def _resnet_batch(torch, cfg, B, size, seed=7):
+    """tests/test_vision.py's separable task, seeded: uniform noise in
+    [0, 0.2) plus a zero-mean stripe whose frequency encodes the class
+    (GroupNorm removes per-sample shifts, not stripes)."""
+    g = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, cfg.num_classes, (B,), generator=g)
+    xx = torch.arange(size)[None, :, None, None]
+    images = (torch.rand(B, size, size, 3, generator=g) * 0.2
+              + 0.5 * torch.sin(2 * math.pi * (labels[:, None, None, None]
+                                               + 1) * xx / size))
+    return {"images": images.float(), "labels": labels.to(torch.int32)}
+
+
+def _train_vision(torch, card, phase, model, cfg, params, loss_fn, batch,
+                  n_attn, n_items, lr):
+    """``model`` under make_train_step with adamw(lr, weight_decay=0.0)
+    on one batch of ``n_items``: 1 warm-up step, 3 timed steps, then one
+    step traced for the device-busy share. The loss falls, every gradient
+    is finite, and ``n_attn`` attention layers launch the forward twice
+    (remat) and each backward once, none on tensor cores."""
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    t0 = time.perf_counter()
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(lr, weight_decay=0.0),
+        device="cuda")
+    state = init_fn(params)
+    placed = place_batch(batch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, losses, norms, step_ms, rate, counts, m = _timed_steps(
+        torch, step_fn, state, placed, n_items)
+    want = _want_train_counts(n_attn, tc=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    window, _ = _profile_window(torch, lambda: step_fn(state, placed))
+    _set_train_counts(counts)
+    emit({"phase": phase, "model": model, "dtype": "bf16",
+          "batch": n_items,
+          "optimizer": f"adamw({lr}, weight_decay=0.0)",
+          "init_s": init_s, "loss": losses, "grad_norm": norms,
+          "step_ms": step_ms, "mean_step_ms": sum(step_ms) / 3,
+          "images_s": rate, "peak_mem_gb": peak, "traced_step": window,
+          "launches": counts, "expected_launches": want,
+          "nvidia_smi": card})
+    _check_training(torch, losses, norms, counts, want, m)
+    return counts
+
+
+def phase_clip(torch, card):
+    """CLIP ViT-B/16 (CLIP_CONFIGS["vit_b16"]: a 12-layer 768-wide vision
+    tower and a 12-layer 512-wide causal text tower, heads of 64; bf16,
+    remat, seed 7) trained on B=128 toy pairs with adamw(1e-4). Its 24
+    attention layers run the SIMT D=64 flash kernels: per step 48
+    forwards (remat) and 24 of each backward. At the `tiny` config's
+    1e-3 the loss of these widths rises over the first steps, in the
+    reference as in the port (tests/test_torch_clip.py::
+    test_vit_b16_widths_track_the_reference_under_adamw)."""
+    from ray_tpu_torch.models.clip import CLIP_CONFIGS, clip_loss, init_clip
+
+    _fresh_phase(torch)
+    cfg = CLIP_CONFIGS["vit_b16"]
+    require(cfg.remat and cfg.dtype == torch.bfloat16,
+            "vit_b16 is not bf16 with remat")
+    return _train_vision(
+        torch, card, "clip", "CLIP ViT-B/16 (n_params "
+        f"{cfg.n_params()})", cfg, init_clip(cfg, seed=7, device="cuda"),
+        clip_loss, _clip_batch(torch, cfg, CLIP_B),
+        cfg.v_layers + cfg.t_layers, CLIP_B, 1e-4)
+
+
+def phase_resnet(torch, card):
+    """ResNet-18 (RESNET_CONFIGS["resnet18"], bf16, seed 7) at CIFAR size,
+    32x32x3 and 10 classes, trained on B=256 separable images with
+    adamw(1e-4): at 1e-3 its loss rises over the first steps, in the
+    reference as in the port (tests/test_torch_vision.py::
+    test_resnet18_tracks_the_reference_under_adamw). No kernel of the
+    port runs (convolutions are the library's)."""
+    from ray_tpu_torch.models.vision import (RESNET_CONFIGS, image_loss,
+                                             init_resnet)
+
+    _fresh_phase(torch)
+    cfg = RESNET_CONFIGS["resnet18"]
+    return _train_vision(
+        torch, card, "resnet", f"ResNet-18 (n_params {cfg.n_params()})",
+        cfg, init_resnet(cfg, seed=7, device="cuda"), image_loss,
+        _resnet_batch(torch, cfg, RESNET_B, RESNET_SIZE), 0, RESNET_B,
+        1e-4)
+
+
 def phase_reference(torch):
     """End to end against the CPU on a small input: a 2-layer f32 model
     (head_dim 128, GQA), dense and with 4 experts, served, then trained,
@@ -1436,7 +1693,9 @@ def phase_reference(torch):
     on the CPU, through their plain versions, from the same weights. f32
     matmuls on the card run without TF32, so greedy streams must be
     identical. Then the head_dim-16 configurations and GRPO
-    (_reference_small_heads), whose launches it returns."""
+    (_reference_small_heads), `tiny` CLIP and ResNet trained
+    (_reference_vision) and `tiny` served from a checkpoint
+    (_reference_hf_tiny), whose launches it returns."""
     import dataclasses
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
@@ -1484,7 +1743,11 @@ def phase_reference(torch):
                      "2-layer f32, head_dim 128")
     _reference_moe(torch, cfg, prompts, sp)
     _reference_jamba(torch)
-    return _reference_small_heads(torch)
+    launches = _reference_small_heads(torch)
+    for run in (_reference_vision, _reference_hf_tiny):
+        for k, n in run(torch).items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 def _reference_small_heads(torch):
@@ -1545,6 +1808,111 @@ def _reference_small_heads(torch):
     for k, n in _reference_grpo(torch, cfg, params).items():
         launches[k] = launches.get(k, 0) + n
     return launches
+
+
+def _reference_vision(torch):
+    """`tiny` CLIP (f32, head_dim 16) and `tiny` ResNet (f32) trained 3
+    steps by make_train_step on the card (the flash kernels, the
+    library's convolutions) and on the CPU (the kernels' plain versions)
+    from the same weights and batch: every loss, and every
+    param afterwards, within 1e-5 abs + 1e-5 rel (_params_close). Adam's
+    eps is 1e-4: with 1e-8 an element whose gradient is cancellation noise
+    would move by up to lr either way. CLIP's 4 attention layers launch
+    the forward once (no remat) and each backward once a step, on SIMT."""
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+    from ray_tpu_torch.models.clip import CLIP_CONFIGS, clip_loss, init_clip
+    from ray_tpu_torch.models.vision import (RESNET_CONFIGS, image_loss,
+                                             init_resnet)
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    clip_cfg, resnet_cfg = CLIP_CONFIGS["tiny"], RESNET_CONFIGS["tiny"]
+    cases = (("reference_clip_tiny_train", "CLIP tiny (f32, head_dim 16)",
+              clip_cfg, init_clip(clip_cfg, seed=3, device="cpu"),
+              clip_loss, _clip_batch(torch, clip_cfg, 8),
+              clip_cfg.v_layers + clip_cfg.t_layers),
+             ("reference_resnet_tiny_train", "ResNet tiny (f32)",
+              resnet_cfg, init_resnet(resnet_cfg, seed=3, device="cpu"),
+              image_loss, _resnet_batch(torch, resnet_cfg, 16, 16), 0))
+    launches = {}
+    for phase, model, cfg, params, loss_fn, batch, n_attn in cases:
+        _zero_counts()
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            init_fn, step_fn, place_batch = make_train_step(
+                lambda p, b: loss_fn(p, b, cfg),
+                adamw(1e-3, eps=1e-4, weight_decay=0.0), device=dev)
+            state = init_fn(tree_map(lambda t: t.to(dev, copy=True), params))
+            placed = place_batch(batch)
+            losses = []
+            for _ in range(3):
+                state, m = step_fn(state, placed)
+                losses.append(m["loss"].item())
+            runs[dev] = (losses, [t.detach().cpu()
+                                  for t in tree_leaves(state.params)])
+        counts = _train_counts()
+        (l_cpu, p_cpu), (l_card, p_card) = runs["cpu"], runs["cuda"]
+        p_ok, p_err = _params_close(p_card, p_cpu)
+        loss_ok = all(abs(a - b) <= 1e-5 + 1e-5 * abs(b)
+                      for a, b in zip(l_card, l_cpu))
+        want = _want_train_counts(n_attn, tc=False,
+                                  remat=getattr(cfg, "remat", False))
+        emit({"phase": phase, "model": model, "steps": 3,
+              "loss_card": l_card, "loss_cpu": l_cpu, "losses_ok": loss_ok,
+              "params_max_abs_err": p_err, "params_ok": p_ok,
+              "card_launches": counts, "expected_launches": want})
+        require(loss_ok, f"{phase}: card and CPU losses differ")
+        require(p_ok, f"{phase}: card and CPU params differ after 3 steps")
+        require(counts == want, f"{phase}: launches {counts}, expected "
+                f"{want}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def _reference_hf_tiny(torch):
+    """`tiny` (f32, head_dim 16) saved by save_hf_checkpoint from the card
+    and loaded back onto it (bit-equal), and onto the CPU: the loaded
+    trees' greedy streams on the card and on the CPU are identical."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.hf_interop import (load_hf_checkpoint,
+                                                 save_hf_checkpoint)
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params
+
+    cfg = LLAMA_CONFIGS["tiny"]
+    params = init_params(cfg, seed=9, device="cuda")
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in (4, 17, 40, 64)]
+    sp = SamplingParams(temperature=0.0, max_tokens=24)
+    tmp = tempfile.mkdtemp(prefix="hf-tiny-")
+    try:
+        save_hf_checkpoint(params, cfg, tmp)
+        loaded = {dev: load_hf_checkpoint(tmp, dtype=torch.float32,
+                                          device=dev)[0]
+                  for dev in ("cuda", "cpu")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = _tree_bit_equal(torch, loaded["cuda"], params)
+    _zero_serving_counts()
+    streams = {dev: LLMEngine(p, cfg, EngineConfig(
+        max_num_seqs=4, page_size=16, num_pages=64, max_seq_len=128,
+        decode_burst=4), device=dev).generate(prompts, sp)
+        for dev, p in loaded.items()}
+    torch.cuda.synchronize()
+    counts = _serving_counts()
+    emit({"phase": "reference_hf_tiny", "model": "tiny (f32, head_dim 16)",
+          "loaded_equals_saved": same,
+          "card_equals_cpu": streams["cuda"] == streams["cpu"],
+          "launches": counts})
+    require(same, "tiny: the checkpoint loaded on the card differs")
+    require(streams["cuda"] == streams["cpu"],
+            "tiny: greedy streams from the loaded tree differ card vs CPU")
+    require(counts["flash_fwd"] > 0 and counts["paged_decode"] > 0,
+            f"tiny from a checkpoint did not take the kernels: {counts}")
+    return {k: counts[k] for k in ("flash_fwd", "paged_decode")}
 
 
 def _reference_grpo(torch, cfg, params):
@@ -2328,6 +2696,7 @@ def phase_timing(torch, launches, max_err):
           "gb_s": r["bytes"] / ms / 1e6})
     flash_attention.launches, paged_decode_attention.launches = saved
     rows += _timing_bwd(torch, launches, max_err)
+    _timing_d64(torch)
     # "sm MHz, max sm MHz, power draw, temperature, throttle reasons"
     emit({"phase": "timing_clocks", "before": clocks_before,
           "after": _clocks()})
@@ -2394,6 +2763,69 @@ def _timing_bwd(torch, launches, max_err):
                      2 * qb + 4 * kb + 2 * lb, 4 * mm_flops, lib))
     _set_train_counts(saved)
     return rows
+
+
+def _timing_d64(torch):
+    """The three flash kernels on the SIMT D=64 route at the clip phase's
+    vision shape (clip_b16_vision: B=128, S=197, 12 heads of 64,
+    non-causal, bf16; q, k, v strided as CLIP's projection gives them),
+    each beside its plain version, its bound and SDPA: one SDPA forward,
+    and one SDPA backward (dQ, dK and dV together, from a retained graph)
+    on both backward rows. One `timing_extra` line each."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.attention import (
+        dkv_route, dq_route, flash_attention, flash_attention_reference,
+        flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
+        flash_bwd_dq_reference, fwd_route)
+
+    saved = _train_counts()
+    case = next(c for c in FLASH_CASES if c[0] == "clip_b16_vision")
+    _, B, Sq, Skv, Hq, Hkv, D, causal, dtype, strided = case
+    q, k, v = _flash_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, strided)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator("cuda").manual_seed(100)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, dvec)
+    routes = {"flash_fwd": fwd_route(q, k, v), "flash_bwd_dq": dq_route(
+        *args[:4]), "flash_bwd_dkv": dkv_route(*args[:4])}
+    require(set(routes.values()) == {"simt"},
+            f"clip_b16_vision does not take the SIMT route: {routes}")
+    mm_flops = 2 * D * Sq * Skv * B * Hq          # one non-causal product
+    qb, kb, lb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    bwd_lib = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do.transpose(1, 2), retain_graph=True))
+    del out, leaves
+    timed = (
+        ("flash_fwd", lambda: flash_attention(q, k, v, causal=causal),
+         lambda: flash_attention_reference(q, k, v, causal=causal),
+         _time_ms(torch, lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=causal)),
+         # read q, k, v; write O and the LSE
+         2 * qb + 2 * kb + lb, 2 * mm_flops),
+        ("flash_bwd_dq", lambda: flash_bwd_dq(*args, causal=causal),
+         lambda: flash_bwd_dq_reference(*args, causal=causal), bwd_lib,
+         3 * qb + 2 * kb + 2 * lb, 3 * mm_flops),
+        ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args, causal=causal),
+         lambda: flash_bwd_dkv_reference(*args, causal=causal), bwd_lib,
+         2 * qb + 4 * kb + 2 * lb, 4 * mm_flops))
+    for name, fn, plain_fn, lib, nbytes, flops in timed:
+        ms = _time_ms(torch, fn)
+        plain = _time_ms(torch, plain_fn, iters=3)
+        r = _row(name, "", "", 0, None, ms, plain, nbytes, flops, lib)
+        emit({"phase": "timing_extra", "name": name, "route": routes[name],
+              "shape": "clip_b16_vision: B=128, S=197, 12 heads of 64, "
+                       "non-causal, bf16, strided q/k/v (SIMT D=64)",
+              **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "bytes", "flops",
+                                   "tflop_s")},
+              "share_of_bound": r["bound_ms"] / ms,
+              "vs_library": ms / lib})
+    _set_train_counts(saved)
 
 
 def _profile_window(torch, fn):
@@ -2624,8 +3056,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
-                  "fleet", "train", "moe", "moe_train", "mamba", "grpo",
-                  "rl", "reference", "timing"]
+                  "fleet", "hf", "train", "moe", "moe_train", "mamba",
+                  "clip", "resnet", "grpo", "rl", "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
         card = phase_device(torch)
@@ -2642,7 +3074,7 @@ def main() -> int:
             launches["paged_decode"] = (launches.get("paged_decode", 0)
                                         + phase_engine_8k(torch, card))
         for name, phase in (("spec", phase_spec), ("lora", phase_lora),
-                            ("fleet", phase_fleet)):
+                            ("fleet", phase_fleet), ("hf", phase_hf)):
             if name in phases:
                 for kernel, n in phase(torch, card).items():
                     launches[kernel] = launches.get(kernel, 0) + n
@@ -2658,7 +3090,8 @@ def main() -> int:
         # empties the cache and starts a new peak
         for name, phase in (("moe", phase_moe),
                             ("moe_train", phase_moe_train),
-                            ("mamba", phase_mamba), ("grpo", phase_grpo),
+                            ("mamba", phase_mamba), ("clip", phase_clip),
+                            ("resnet", phase_resnet), ("grpo", phase_grpo),
                             ("rl", phase_rl)):
             if name in phases:
                 for kernel, n in phase(torch, card).items():

@@ -29,9 +29,9 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def is_layer_group(key: str) -> bool:
-    """A top-level group of stacked per-layer leaves: ``"layers"`` or a
-    name ending in ``"_layers"``, the convention of every model tree."""
-    return key == "layers" or key.endswith("_layers")
+    """A group of stacked per-layer leaves, at any depth of a model tree:
+    ``"layers"``, a name ending in ``"_layers"``, or a CLIP ``"tower"``."""
+    return key in ("layers", "tower") or key.endswith("_layers")
 
 
 def layer_params(layers, li: int) -> Dict:
@@ -43,15 +43,24 @@ def layer_params(layers, li: int) -> Dict:
                 else v[li]) for k, v in layers.items()}
 
 
-def unstack_layers(params: Dict) -> Dict:
-    """The tree with each stacked layer group (``is_layer_group``) as a
-    list of per-layer dicts whose tensors are views of the stacked leaves
-    (sharing their storage, so an in-place update of a layer's tensor
-    updates the stacked leaf)."""
-    out = dict(params)
-    for key, group in params.items():
-        if is_layer_group(key) and isinstance(group, dict):
-            n = len(next(iter(group.values())))
-            out[key] = [{k: v[li] for k, v in group.items()}
+def unstack_layers(params):
+    """The tree with each stacked layer group (``is_layer_group``, found at
+    any depth) as a list of per-layer dicts whose tensors are views of the
+    stacked leaves (sharing their storage, so an in-place update of a
+    layer's tensor updates the stacked leaf). A group that is a list
+    already is left as it is; other leaves are the same tensors."""
+    if isinstance(params, list):
+        return [unstack_layers(node) for node in params]
+    if not isinstance(params, dict):
+        return params
+    out = {}
+    for key, node in params.items():
+        if not is_layer_group(key):
+            out[key] = unstack_layers(node)
+        elif isinstance(node, dict):
+            n = len(next(iter(node.values())))
+            out[key] = [{k: v[li] for k, v in node.items()}
                         for li in range(n)]
+        else:
+            out[key] = node
     return out

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .._private.device import resolve_device
-from .._private.tree import tree_leaves, unstack_layers
+from .._private.tree import is_layer_group, tree_leaves, unstack_layers
 from ..train.optim import AdamState
 
 
@@ -86,9 +86,9 @@ def opt_state_from_jax(opt_state, params, device=None) -> AdamState:
         raise ValueError("no ScaleByAdamState(count, mu, nu) in the state")
     mu = params_from_jax(adam.mu, device)
     nu = params_from_jax(adam.nu, device)
-    if isinstance(params.get("layers"), (list, tuple)):
-        # stacked groups are split; a group that is a list already (an RL
-        # policy's) is left as it is
+    if _has_split_group(params):
+        # stacked groups are split, at any depth; a group that is a list
+        # already (an RL policy's) is left as it is
         mu, nu = unstack_layers(mu), unstack_layers(nu)
     for p, m, n in zip(tree_leaves(params), tree_leaves(mu),
                        tree_leaves(nu), strict=True):
@@ -98,18 +98,32 @@ def opt_state_from_jax(opt_state, params, device=None) -> AdamState:
     return AdamState(int(np.asarray(adam.count)), mu, nu)
 
 
+def _has_split_group(tree) -> bool:
+    """Whether a layer group (``is_layer_group``) anywhere in ``tree`` is a
+    per-layer list, as in the trainer's tree."""
+    if isinstance(tree, dict):
+        return any((is_layer_group(k) and isinstance(v, list))
+                   or _has_split_group(v) for k, v in tree.items())
+    if isinstance(tree, list):
+        return any(_has_split_group(v) for v in tree)
+    return False
+
+
 def params_to_numpy(params):
     """A port tree → the same tree of numpy arrays in the reference's
-    stacked layout (per-layer lists are stacked again; bf16 leaves come
-    out as float32, exactly)."""
+    stacked layout: a per-layer list under a layer-group key
+    (``is_layer_group``) is stacked again, any other list (a ResNet's
+    stages and blocks) stays a list; bf16 leaves come out as float32,
+    exactly."""
 
-    def walk(node):
+    def walk(node, key=""):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            layers = [walk(n) for n in node]
-            return {k: np.stack([lp[k] for lp in layers])
-                    for k in layers[0]}
+            items = [walk(n) for n in node]
+            if not is_layer_group(key):
+                return items
+            return {k: np.stack([lp[k] for lp in items]) for k in items[0]}
         t = node.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 

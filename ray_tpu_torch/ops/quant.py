@@ -33,7 +33,10 @@ def quantize_weight(w: torch.Tensor,
     matmul will contract (reduced out of the scale)."""
     wf = w.float()
     axes = tuple(contract_axes)
-    s = wf.abs().amax(dim=axes).clamp_min(1e-8) / 127.0
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, one ulp off the reference's division for some scales
+    s = wf.abs().amax(dim=axes).clamp_min(1e-8) / torch.full(
+        (), 127.0, device=wf.device)
     s_b = s
     for a in sorted(axes):
         s_b = s_b.unsqueeze(a)

@@ -768,3 +768,102 @@ def test_ppo_update_on_card_matches_cpu(gen):
     for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
         torch.testing.assert_close(torch.from_numpy(a), torch.from_numpy(b),
                                    atol=1e-5, rtol=1e-5)
+
+
+# --- the checkpoint door and the vision families ------------------------------
+
+def test_hf_round_trip_on_card_is_bit_equal(gen, tmp_path):
+    """`tiny` in f32 and bf16 saved from the card and loaded back onto it:
+    every leaf bit-equal, and equal to a load onto the CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.models import (LLAMA_CONFIGS, load_hf_checkpoint,
+                                      save_hf_checkpoint)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(LLAMA_CONFIGS["tiny"], dtype=dtype)
+        params = init_params(cfg, seed=1, device="cuda")
+        path = str(tmp_path / str(dtype))
+        save_hf_checkpoint(params, cfg, path)
+        got, _ = load_hf_checkpoint(path, dtype=dtype, device="cuda")
+        cpu, _ = load_hf_checkpoint(path, dtype=dtype, device="cpu")
+        for a, b, c in zip(tree_leaves(got), tree_leaves(params),
+                           tree_leaves(cpu), strict=True):
+            assert a.is_cuda and a.dtype == b.dtype == dtype
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_host_int8_load_equals_quantize_params_on_card(gen, tmp_path):
+    """quantize="int8" rounds and quantizes on the host: every int8 value
+    and scale equals quantize_params run on the card over the bf16 load."""
+    import dataclasses
+
+    from ray_tpu_torch.models import (LLAMA_CONFIGS, load_hf_checkpoint,
+                                      save_hf_checkpoint)
+    from ray_tpu_torch.ops.quant import quantize_params
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS["tiny"], dtype=torch.bfloat16)
+    save_hf_checkpoint(init_params(cfg, seed=2, device="cuda"), cfg,
+                       str(tmp_path))
+    q8, _ = load_hf_checkpoint(str(tmp_path), quantize="int8",
+                               device="cuda")
+    bf16, _ = load_hf_checkpoint(str(tmp_path), device="cuda")
+    want = quantize_params(bf16, cfg)
+    for a, b in zip(tree_leaves(q8), tree_leaves(want), strict=True):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _vision_steps_card_vs_cpu(loss_fn, cfg, params, batch):
+    """3 AdamW steps (eps 1e-4: no element's step hangs on the sign of a
+    gradient that is cancellation noise) on the card and on the CPU from
+    the same weights: losses and every param within 1e-5 abs + 1e-5 rel.
+    The card's f32 convolutions run without TF32, as its matmuls do."""
+    out, tf32 = {}, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            init_fn, step_fn, place_batch = make_train_step(
+                lambda p, b: loss_fn(p, b, cfg),
+                adamw(1e-3, eps=1e-4, weight_decay=0.0), device=dev)
+            state = init_fn(tree_map(lambda t: t.to(dev, copy=True),
+                                     params))
+            placed = place_batch(batch)
+            losses = []
+            for _ in range(3):
+                state, m = step_fn(state, placed)
+                losses.append(m["loss"].item())
+            out[dev] = losses, [t.detach().cpu()
+                                for t in tree_leaves(state.params)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (l0, p0), (l1, p1) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(torch.tensor(l1), torch.tensor(l0),
+                               atol=1e-5, rtol=1e-5)
+    for a, b in zip(p1, p0, strict=True):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_clip_tiny_steps_on_card_match_cpu(gen):
+    from ray_tpu_torch.models import CLIP_CONFIGS, clip_loss, init_clip
+
+    cfg = CLIP_CONFIGS["tiny"]
+    g = torch.Generator().manual_seed(3)
+    batch = {"images": torch.rand(8, 32, 32, 3, generator=g),
+             "tokens": torch.randint(1, cfg.vocab, (8, cfg.max_text),
+                                     generator=g, dtype=torch.int32)}
+    batch["tokens"][:, 10:] = 0
+    _vision_steps_card_vs_cpu(clip_loss, cfg,
+                              init_clip(cfg, seed=3, device="cpu"), batch)
+
+
+def test_resnet_tiny_steps_on_card_match_cpu(gen):
+    from ray_tpu_torch.models import (RESNET_CONFIGS, image_loss,
+                                      init_resnet)
+
+    cfg = RESNET_CONFIGS["tiny"]
+    g = torch.Generator().manual_seed(4)
+    batch = {"images": torch.rand(8, 15, 15, 3, generator=g),
+             "labels": torch.randint(0, cfg.num_classes, (8,), generator=g,
+                                     dtype=torch.int32)}
+    _vision_steps_card_vs_cpu(image_loss, cfg,
+                              init_resnet(cfg, seed=4, device="cpu"), batch)

@@ -161,3 +161,79 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              cwd=str(cwd), env=env)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+# none of these is on the card's machine: the port reads and writes
+# safetensors and bf16 itself
+HF_LIBRARIES = ("ml_dtypes", "safetensors", "transformers")
+
+
+def test_the_walk_covers_the_checkpoint_vision_and_data_modules():
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.models.hf_interop", "ray_tpu_torch.models.clip",
+              "ray_tpu_torch.models.vision", "ray_tpu_torch.data",
+              "ray_tpu_torch.data.llm"):
+        assert m in mods, m
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]))
+def test_source_imports_no_hf_library(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] in HF_LIBRARIES]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_importing_every_module_loads_no_hf_library():
+    """In a fresh interpreter where any import of ml_dtypes, safetensors or
+    transformers raises, every module of the port imports."""
+    code = f"""
+import importlib, json, sys
+blocked = {HF_LIBRARIES!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in blocked:
+            raise ImportError("forbidden import: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {str(REPO)!r})
+for m in {_port_modules()!r}:
+    importlib.import_module(m)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in blocked)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(REPO),
+                         env=_no_card_env())
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_checkpoint_and_vision_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from ray_tpu_torch.data import build_llm_processor
+    from ray_tpu_torch.models import (CLIP_CONFIGS, RESNET_CONFIGS,
+                                      init_clip, init_resnet,
+                                      load_hf_checkpoint, save_hf_checkpoint)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_clip(CLIP_CONFIGS["tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_resnet(RESNET_CONFIGS["tiny"])
+    save_hf_checkpoint(init_params(TINY, seed=0, device="cpu"), TINY,
+                       str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_hf_checkpoint(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_llm_processor("tiny")({"prompt_ids": [[1, 2]]})
