@@ -48,7 +48,8 @@ Phases, one JSON line each on stdout:
                Jamba's attention through all three flash kernels.
      clip    - CLIP ViT-B/16 (bf16, remat) trained 1+3 steps on B=128 toy
                pairs: the loss falls, its 24 attention layers through the
-               three SIMT D=64 flash kernels; a traced step's busy share.
+               tensor-core D=64 forward and dK/dV and the SIMT D=64 dQ; a
+               traced step's busy share.
      resnet  - ResNet-18 (bf16) at 32x32, 10 classes, trained 1+3 steps at
                B=256: the loss falls (no kernel of the port runs).
      grpo    - GRPO RLHF: the default `tiny` config raises its reward on
@@ -70,7 +71,9 @@ Phases, one JSON line each on stdout:
                CLIP and ResNet trained 3 steps (every param within 1e-5),
                and `tiny` saved, loaded and served from the checkpoint.
   8. timing  - kernel, plain-version and library times, and the bound;
-               the three flash kernels also at CLIP's D=64 vision shape.
+               the three flash kernels also at CLIP's D=64 vision and text
+               shapes, and the D=64 forward built for a minimum of one and
+               of two CTAs an SM.
 A comma-separated list of phases runs only those and prints no result;
 `profile`, `profile_train` and `profile_moe` (not in the default run)
 trace, with torch.profiler, one 511-token prefill and a decode burst at
@@ -120,11 +123,13 @@ def phase_device(torch):
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the convolutions' TF32 flag stays at PyTorch's default (on): the
+    # port's f32 convolutions are f32 matmuls
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "conv_allow_tf32": torch.backends.cudnn.allow_tf32})
     return card
 
 
@@ -158,8 +163,9 @@ def _ptxas(log):
     return out
 
 
-TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
-              "flash_bwd_dkv_tc_kernel")
+TC_KERNELS = ("flash_fwd_tc_kernel<64>", "flash_fwd_tc_kernel<128>",
+              "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel<64>",
+              "flash_bwd_dkv_tc_kernel<128>")
 
 
 def phase_build():
@@ -189,10 +195,11 @@ def phase_build():
             v.get("spill_bytes") == 0 for v in paged.values()),
             f"a paged decode kernel spills or is missing: {paged}")
         # every SIMT flash kernel: forward, dQ and dK/dV in f32 at head_dim
-        # 16, 32, 64 and 128 and in bf16 at 16, 32 and 64
+        # 16, 32, 64 and 128 and in bf16 at 16 and 32, and dQ in bf16 at 64
+        # (bf16 at 64 is the tensor cores' for the forward and dK/dV)
         simt = {k: v for k, v in kernels.items() if k.startswith("flash_")
                 and re.search(r"<(f32|bf16),\d+>$", k)}
-        require(len(simt) == 21 and all(
+        require(len(simt) == 19 and all(
             v.get("spill_bytes") == 0 for v in simt.values()),
             f"a SIMT flash kernel spills or is missing: {simt}")
 
@@ -229,8 +236,9 @@ FLASH_CASES = [
     ("grpo_1b_sample_s37", 8, 37, 37, 16, 8, 128, True, "bf16", False),
     ("grpo_1b_sample_s48", 8, 48, 48, 16, 8, 128, True, "bf16", False),
     ("grpo_1b_update", 32, 48, 48, 16, 8, 128, True, "bf16", False),
-    # the clip phase's ViT-B/16 towers (bf16, head_dim 64: the SIMT route):
-    # q, k and v are views of one (B, S, 3, H, 64) projection output
+    # the clip phase's ViT-B/16 towers (bf16, head_dim 64: the tensor-core
+    # forward and dK/dV, the SIMT dQ): q, k and v are views of one
+    # projection output
     ("clip_b16_vision", 128, 197, 197, 12, 12, 64, False, "bf16", True),
     ("clip_b16_text", 128, 77, 77, 8, 8, 64, True, "bf16", True),
 ]
@@ -412,6 +420,18 @@ def _close(torch, got, want, tol):
                                rtol=tol))
 
 
+# The route each flash wrapper must take for bf16, by head dim: the
+# tensor cores for the forward and dK/dV at 64 and 128 and for dQ at 128,
+# SIMT for every other head dim and for f32.
+TC_ROUTE_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
+                      "flash_bwd_dkv": (64, 128)}
+
+
+def _want_route(kernel, D, dtype):
+    return ("tc" if dtype == "bf16" and D in TC_ROUTE_HEAD_DIMS[kernel]
+            else "simt")
+
+
 def phase_parity(torch):
     from ray_tpu_torch.ops.attention import (flash_attention,
                                              flash_attention_reference,
@@ -434,9 +454,11 @@ def phase_parity(torch):
         tol = 2e-2 if dtype == "bf16" else 1e-4
         lse_tol = 5e-3 if dtype == "bf16" else 1e-4
         err, lse_err = _max_err(out, ref), _max_err(lse, ref_lse)
+        route = fwd_route(q, k, v)
         ok = (_close(torch, out, ref, tol)
               and _close(torch, lse, ref_lse, lse_tol)
-              and bool(torch.isfinite(out.float()).all()) and deterministic)
+              and bool(torch.isfinite(out.float()).all()) and deterministic
+              and route == _want_route("flash_fwd", D, dtype))
         masked_zero = None
         if causal and Sq > Skv:
             # rows that see no key give exactly 0
@@ -444,7 +466,7 @@ def phase_parity(torch):
             ok = ok and masked_zero
         emit({"phase": "parity", "kernel": "flash_fwd", "case": name,
               "shape": [B, Sq, Skv, Hq, Hkv, D], "causal": causal,
-              "dtype": dtype, "route": fwd_route(q, k, v),
+              "dtype": dtype, "route": route,
               "max_abs_err": err, "lse_max_abs_err": lse_err,
               "tol": tol, "lse_tol": lse_tol,
               "masked_rows_zero": masked_zero,
@@ -528,7 +550,8 @@ def _bwd_parity(torch, name, B, Sq, Skv, Hq, Hkv, D, causal, dtype):
             err = max(_max_err(g, w) for g, w in zip(got, want))
             tol, measure = 1e-4, "max_abs_err"
             ok = all(_close(torch, g, w, tol) for g, w in zip(got, want))
-        ok = ok and finite and all(g.dtype == args[0].dtype for g in got)
+        ok = (ok and finite and all(g.dtype == args[0].dtype for g in got)
+              and routes[kernel] == _want_route(kernel, D, dtype))
         masked_zero = None
         if kernel == "flash_bwd_dq" and causal and Sq > Skv:
             masked_zero = bool((got[0][:, :Sq - Skv] == 0).all())
@@ -1311,11 +1334,13 @@ def _timed_steps(torch, step_fn, state, batch, tokens_per_step):
 def _want_train_counts(n_attn, tc=True, steps=3, remat=True):
     """Launches of ``steps`` steps of ``n_attn`` attention layers: the
     forward twice under remat (forward, recompute), else once, each
-    backward once; all on tensor cores, or none."""
+    backward once; on tensor cores: every kernel (``tc`` True), none
+    (False), or the kernels named in ``tc``."""
     per_run = {"flash_fwd": (2 if remat else 1) * n_attn * steps,
                "flash_bwd_dq": n_attn * steps,
                "flash_bwd_dkv": n_attn * steps}
-    return {**per_run, **{k + "_tc": n if tc else 0
+    on_tc = set(per_run) if tc is True else set(tc or ())
+    return {**per_run, **{k + "_tc": n if k in on_tc else 0
                           for k, n in per_run.items()}}
 
 
@@ -1611,12 +1636,13 @@ def _resnet_batch(torch, cfg, B, size, seed=7):
 
 
 def _train_vision(torch, card, phase, model, cfg, params, loss_fn, batch,
-                  n_attn, n_items, lr):
+                  n_attn, n_items, lr, tc):
     """``model`` under make_train_step with adamw(lr, weight_decay=0.0)
     on one batch of ``n_items``: 1 warm-up step, 3 timed steps, then one
     step traced for the device-busy share. The loss falls, every gradient
     is finite, and ``n_attn`` attention layers launch the forward twice
-    (remat) and each backward once, none on tensor cores."""
+    (remat) and each backward once, the kernels in ``tc`` on tensor cores
+    (see _want_train_counts)."""
     from ray_tpu_torch.train import adamw, make_train_step
 
     t0 = time.perf_counter()
@@ -1629,9 +1655,9 @@ def _train_vision(torch, card, phase, model, cfg, params, loss_fn, batch,
     init_s = time.perf_counter() - t0
     state, losses, norms, step_ms, rate, counts, m = _timed_steps(
         torch, step_fn, state, placed, n_items)
-    want = _want_train_counts(n_attn, tc=False)
+    want = _want_train_counts(n_attn, tc=tc)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    window, _ = _profile_window(torch, lambda: step_fn(state, placed))
+    window, prof = _profile_window(torch, lambda: step_fn(state, placed))
     _set_train_counts(counts)
     emit({"phase": phase, "model": model, "dtype": "bf16",
           "batch": n_items,
@@ -1639,6 +1665,7 @@ def _train_vision(torch, card, phase, model, cfg, params, loss_fn, batch,
           "init_s": init_s, "loss": losses, "grad_norm": norms,
           "step_ms": step_ms, "mean_step_ms": sum(step_ms) / 3,
           "images_s": rate, "peak_mem_gb": peak, "traced_step": window,
+          "traced_flash": _flash_split(prof),
           "launches": counts, "expected_launches": want,
           "nvidia_smi": card})
     _check_training(torch, losses, norms, counts, want, m)
@@ -1649,8 +1676,9 @@ def phase_clip(torch, card):
     """CLIP ViT-B/16 (CLIP_CONFIGS["vit_b16"]: a 12-layer 768-wide vision
     tower and a 12-layer 512-wide causal text tower, heads of 64; bf16,
     remat, seed 7) trained on B=128 toy pairs with adamw(1e-4). Its 24
-    attention layers run the SIMT D=64 flash kernels: per step 48
-    forwards (remat) and 24 of each backward. At the `tiny` config's
+    attention layers (heads of 64) run the tensor-core forward and dK/dV
+    and the SIMT dQ: per step 48 forwards (remat) and 24 of each
+    backward. At the `tiny` config's
     1e-3 the loss of these widths rises over the first steps, in the
     reference as in the port (tests/test_torch_clip.py::
     test_vit_b16_widths_track_the_reference_under_adamw)."""
@@ -1664,7 +1692,8 @@ def phase_clip(torch, card):
         torch, card, "clip", "CLIP ViT-B/16 (n_params "
         f"{cfg.n_params()})", cfg, init_clip(cfg, seed=7, device="cuda"),
         clip_loss, _clip_batch(torch, cfg, CLIP_B),
-        cfg.v_layers + cfg.t_layers, CLIP_B, 1e-4)
+        cfg.v_layers + cfg.t_layers, CLIP_B, 1e-4,
+        tc=("flash_fwd", "flash_bwd_dkv"))
 
 
 def phase_resnet(torch, card):
@@ -1673,7 +1702,7 @@ def phase_resnet(torch, card):
     adamw(1e-4): at 1e-3 its loss rises over the first steps, in the
     reference as in the port (tests/test_torch_vision.py::
     test_resnet18_tracks_the_reference_under_adamw). No kernel of the
-    port runs (convolutions are the library's)."""
+    port runs (bf16 convolutions are the library's)."""
     from ray_tpu_torch.models.vision import (RESNET_CONFIGS, image_loss,
                                              init_resnet)
 
@@ -1683,7 +1712,7 @@ def phase_resnet(torch, card):
         torch, card, "resnet", f"ResNet-18 (n_params {cfg.n_params()})",
         cfg, init_resnet(cfg, seed=7, device="cuda"), image_loss,
         _resnet_batch(torch, cfg, RESNET_B, RESNET_SIZE), 0, RESNET_B,
-        1e-4)
+        1e-4, tc=False)
 
 
 def phase_reference(torch):
@@ -1812,9 +1841,10 @@ def _reference_small_heads(torch):
 
 def _reference_vision(torch):
     """`tiny` CLIP (f32, head_dim 16) and `tiny` ResNet (f32) trained 3
-    steps by make_train_step on the card (the flash kernels, the
-    library's convolutions) and on the CPU (the kernels' plain versions)
-    from the same weights and batch: every loss, and every
+    steps by make_train_step on the card (the flash kernels; f32
+    convolutions as f32 matmuls, every TF32 flag at PyTorch's default)
+    and on the CPU (the kernels' plain versions) from the same weights
+    and batch: every loss, and every
     param afterwards, within 1e-5 abs + 1e-5 rel (_params_close). Adam's
     eps is 1e-4: with 1e-8 an element whose gradient is cancellation noise
     would move by up to lr either way. CLIP's 4 attention layers launch
@@ -2765,10 +2795,14 @@ def _timing_bwd(torch, launches, max_err):
     return rows
 
 
+D64_TIMED = ("clip_b16_vision", "clip_b16_text")
+
+
 def _timing_d64(torch):
-    """The three flash kernels on the SIMT D=64 route at the clip phase's
-    vision shape (clip_b16_vision: B=128, S=197, 12 heads of 64,
-    non-causal, bf16; q, k, v strided as CLIP's projection gives them),
+    """The three flash kernels at the clip phase's shapes (clip_b16_vision:
+    B=128, S=197, 12 heads of 64, non-causal; clip_b16_text: B=128, S=77,
+    8 heads of 64, causal; bf16, q, k, v strided as CLIP's projection
+    gives them): the forward and dK/dV on the tensor cores, dQ on SIMT,
     each beside its plain version, its bound and SDPA: one SDPA forward,
     and one SDPA backward (dQ, dK and dV together, from a retained graph)
     on both backward rows. One `timing_extra` line each."""
@@ -2780,51 +2814,59 @@ def _timing_d64(torch):
         flash_bwd_dq_reference, fwd_route)
 
     saved = _train_counts()
-    case = next(c for c in FLASH_CASES if c[0] == "clip_b16_vision")
-    _, B, Sq, Skv, Hq, Hkv, D, causal, dtype, strided = case
-    q, k, v = _flash_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype, strided)
-    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-    g = torch.Generator("cuda").manual_seed(100)
-    do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
-    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, do, lse, dvec)
-    routes = {"flash_fwd": fwd_route(q, k, v), "flash_bwd_dq": dq_route(
-        *args[:4]), "flash_bwd_dkv": dkv_route(*args[:4])}
-    require(set(routes.values()) == {"simt"},
-            f"clip_b16_vision does not take the SIMT route: {routes}")
-    mm_flops = 2 * D * Sq * Skv * B * Hq          # one non-causal product
-    qb, kb, lb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-    bwd_lib = _time_ms(torch, lambda: torch.autograd.grad(
-        out, leaves, do.transpose(1, 2), retain_graph=True))
-    del out, leaves
-    timed = (
-        ("flash_fwd", lambda: flash_attention(q, k, v, causal=causal),
-         lambda: flash_attention_reference(q, k, v, causal=causal),
-         _time_ms(torch, lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, is_causal=causal)),
-         # read q, k, v; write O and the LSE
-         2 * qb + 2 * kb + lb, 2 * mm_flops),
-        ("flash_bwd_dq", lambda: flash_bwd_dq(*args, causal=causal),
-         lambda: flash_bwd_dq_reference(*args, causal=causal), bwd_lib,
-         3 * qb + 2 * kb + 2 * lb, 3 * mm_flops),
-        ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args, causal=causal),
-         lambda: flash_bwd_dkv_reference(*args, causal=causal), bwd_lib,
-         2 * qb + 4 * kb + 2 * lb, 4 * mm_flops))
-    for name, fn, plain_fn, lib, nbytes, flops in timed:
-        ms = _time_ms(torch, fn)
-        plain = _time_ms(torch, plain_fn, iters=3)
-        r = _row(name, "", "", 0, None, ms, plain, nbytes, flops, lib)
-        emit({"phase": "timing_extra", "name": name, "route": routes[name],
-              "shape": "clip_b16_vision: B=128, S=197, 12 heads of 64, "
-                       "non-causal, bf16, strided q/k/v (SIMT D=64)",
-              **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by", "bytes", "flops",
-                                   "tflop_s")},
-              "share_of_bound": r["bound_ms"] / ms,
-              "vs_library": ms / lib})
+    for case in (c for c in FLASH_CASES if c[0] in D64_TIMED):
+        name, B, Sq, Skv, Hq, Hkv, D, causal, dtype, strided = case
+        q, k, v = _flash_inputs(torch, B, Sq, Skv, Hq, Hkv, D, dtype,
+                                strided)
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        g = torch.Generator("cuda").manual_seed(100)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+        dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, dvec)
+        routes = {"flash_fwd": fwd_route(q, k, v),
+                  "flash_bwd_dq": dq_route(*args[:4]),
+                  "flash_bwd_dkv": dkv_route(*args[:4])}
+        require(routes == {"flash_fwd": "tc", "flash_bwd_dq": "simt",
+                           "flash_bwd_dkv": "tc"},
+                f"{name} does not take the D=64 routes: {routes}")
+        # products over the pairs the mask keeps (bottom-right causal)
+        pairs = (sum(min(Skv, max(0, i + Skv - Sq + 1)) for i in range(Sq))
+                 if causal else Sq * Skv)
+        mm_flops = 2 * D * pairs * B * Hq          # one product
+        qb, kb, lb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        bwd_lib = _time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do.transpose(1, 2), retain_graph=True))
+        del out, leaves
+        timed = (
+            ("flash_fwd", lambda: flash_attention(q, k, v, causal=causal),
+             lambda: flash_attention_reference(q, k, v, causal=causal),
+             _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal)),
+             # read q, k, v; write O and the LSE
+             2 * qb + 2 * kb + lb, 2 * mm_flops),
+            ("flash_bwd_dq", lambda: flash_bwd_dq(*args, causal=causal),
+             lambda: flash_bwd_dq_reference(*args, causal=causal), bwd_lib,
+             3 * qb + 2 * kb + 2 * lb, 3 * mm_flops),
+            ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args, causal=causal),
+             lambda: flash_bwd_dkv_reference(*args, causal=causal), bwd_lib,
+             2 * qb + 4 * kb + 2 * lb, 4 * mm_flops))
+        for kernel, fn, plain_fn, lib, nbytes, flops in timed:
+            ms = _time_ms(torch, fn)
+            plain = _time_ms(torch, plain_fn, iters=3)
+            r = _row(kernel, "", "", 0, None, ms, plain, nbytes, flops, lib)
+            emit({"phase": "timing_extra", "name": kernel,
+                  "route": routes[kernel],
+                  "shape": f"{name}: B={B}, S={Sq}, {Hq} heads of {D}, "
+                           f"{'causal' if causal else 'non-causal'}, bf16, "
+                           f"strided q/k/v",
+                  **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "bytes",
+                                       "flops", "tflop_s")},
+                  "share_of_bound": r["bound_ms"] / ms,
+                  "vs_library": ms / lib})
     _set_train_counts(saved)
 
 
@@ -2989,6 +3031,25 @@ KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
                                  "flash_bwd_dq_tc_kernel"),
                 "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
                                   "flash_bwd_dkv_tc_kernel")}
+
+
+def _flash_split(prof):
+    """Device ms and launches of each flash kernel in a profile, by
+    wrapper, tensor-core (<name>_tc) and SIMT kernels apart."""
+    from torch.autograd import DeviceType
+
+    split = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, (simt, tc) in KERNEL_NAMES.items():
+            key = name + "_tc" if tc in e.name else name if simt in e.name \
+                else None
+            if key:
+                ms, n = split.get(key, (0.0, 0))
+                split[key] = (ms + (e.time_range.end
+                                    - e.time_range.start) / 1e3, n + 1)
+    return {k: {"ms": ms, "launches": n} for k, (ms, n) in split.items()}
 
 
 def phase_profile_train(torch):

@@ -45,8 +45,11 @@
 // heaviest q block first. Bound, like the forward, by how much of the
 // tensor cores' time two warpgroups keep busy between syncs.
 //
-// flash_bwd_dkv_tc_kernel: dK/dV for bf16 with D = 128 (the training
-// path), on the tensor cores (wgmma), the variant that landed. A CTA is two
+// flash_bwd_dkv_tc_kernel<D>: dK/dV for bf16 with D = 64 or 128 (the
+// training paths, CLIP's towers), on the tensor cores (wgmma), the variant
+// that landed. D sets the tiles (one 64-column swizzle panel a row at 64,
+// two at 128), the D / 16 k-steps of S^T and dP^T, the N of the dV and dK
+// products and their D / 2 accumulator registers each. A CTA is two
 // warpgroups on one 64-row kv tile; the tile's K and V sit in shared memory
 // in the 128-byte-swizzled layout wgmma reads (sm90.cuh). The steps are
 // the (q head of the GQA group, 64-row q tile) pairs that see the kv tile;
@@ -55,11 +58,11 @@
 // one's products run). A step runs all four products on wgmma, S and dP
 // transposed so that the kv rows are M: S^T = K Q^T and dP^T = V dO^T
 // (m64n64k16, both operands from shared memory), then dV += P^T dO and
-// dK += dS^T Q (m64n128k16) with A from registers: the bf16 rounding of
+// dK += dS^T Q (m64nDk16) with A from registers: the bf16 rounding of
 // the S^T and dP^T accumulators is already the A-operand layout, so P and
 // dS never pass through shared memory, and Q and dO are read from the same
 // tiles as B, MN-major. The softmax rebuild of one warpgroup overlaps the
-// other's products. dK and dV stay in f32 registers over every step (128
+// other's products. dK and dV stay in f32 registers over every step (D
 // per thread); at the end the second warpgroup's sums go to the first
 // through shared memory, in a fixed order, and are rounded once: no
 // atomics, no scratch, deterministic. The causal work of kv tile j falls
@@ -68,11 +71,11 @@
 // SMs, one wave). What bounds it now is how much of the tensor cores' time
 // two warpgroups keep busy between syncs and softmax, not the bytes.
 //
-// flash_bwd_dkv_kernel and flash_bwd_dq_kernel (f32, and bf16 with D = 16,
-// 32 or 64; f32 also at D = 128): the first version, like flash_fwd.cu's
-// SIMT kernel, with f32 FMAs out of shared memory (no wgmma, no TMA),
-// bound by the f32 FMA rate and shared-memory bandwidth, far from the
-// tensor-core bound; f32 is held at 1e-4.
+// flash_bwd_dkv_kernel and flash_bwd_dq_kernel (f32 with D = 16, 32, 64
+// or 128; bf16 with D = 16 or 32, and dQ's also at 64): the first
+// version, like flash_fwd.cu's SIMT kernel, with f32 FMAs out of shared
+// memory (no wgmma, no TMA), bound by the f32 FMA rate and shared-memory
+// bandwidth, far from the tensor-core bound; f32 is held at 1e-4.
 // dQ: one CTA of 256 threads per (64-row q tile, b * Hq), looping over the
 // 64-row kv tiles up to the causal diagonal (the mirror of flash_fwd's
 // grid). Each thread owns a 4x4 block of S and dP (both built in one pass
@@ -380,38 +383,43 @@ flash_bwd_dkv_kernel(
   }
 }
 
-// --- dK/dV on tensor cores: bf16, head_dim 128 -----------------------------
+// --- dK/dV on tensor cores: bf16, head_dim 64 or 128 ----------------------
 
 namespace tc {
 
-constexpr int D = 128;
 constexpr int BK = 64;   // kv rows per tile: the M of every product
 constexpr int BR = 64;   // q rows per step (32 measured slower)
 constexpr int NWG = 2;   // warpgroups, each on every other step (1 slower)
 constexpr int NT = 128 * NWG;
+constexpr int PANEL = 64 * 128;   // a 64-row tile's 64-column panel, bytes
 constexpr float LOG2E = 1.4426950408889634f;
 
-// shared memory, byte offsets from a 1024-byte-aligned base: the K and V
-// tiles, then for each warpgroup two buffers each of Q, dO, lse and Dvec.
-// At the end of a kv tile the second warpgroup's dK and dV (f32) go
-// through the Q buffers to the first.
-constexpr int KV_TILE = BK * D * 2;
-constexpr int Q_TILE = BR * D * 2;
-constexpr int OFF_K = 0;
-constexpr int OFF_V = OFF_K + KV_TILE;
-constexpr int OFF_Q = OFF_V + KV_TILE;               // [NWG][2] tiles
-constexpr int OFF_DO = OFF_Q + 2 * NWG * Q_TILE;     // [NWG][2] tiles
-constexpr int OFF_LSE = OFF_DO + 2 * NWG * Q_TILE;   // [NWG][2][BR] f32
-constexpr int OFF_DVEC = OFF_LSE + 2 * NWG * BR * 4; // [NWG][2][BR] f32
-constexpr int SMEM_BYTES = OFF_DVEC + 2 * NWG * BR * 4 + 1024;  // + slack
-static_assert(2 * NWG * Q_TILE >= 128 * 128 * 4,
-              "the Q buffers hold one warpgroup's dK and dV");
+// Shared memory of the dK/dV kernel, byte offsets from a 1024-byte-aligned
+// base: the K and V tiles, then for each warpgroup two buffers each of Q,
+// dO, lse and Dvec; every tile 64 rows of D columns. At the end of a kv
+// tile the second warpgroup's dK and dV (f32, D a thread) go through the
+// Q buffers to the first.
+template <int D>
+struct DkvSmem {
+  static constexpr int KV_TILE = BK * D * 2;
+  static constexpr int Q_TILE = BR * D * 2;
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = OFF_K + KV_TILE;
+  static constexpr int OFF_Q = OFF_V + KV_TILE;               // [NWG][2]
+  static constexpr int OFF_DO = OFF_Q + 2 * NWG * Q_TILE;     // [NWG][2]
+  static constexpr int OFF_LSE = OFF_DO + 2 * NWG * Q_TILE;   // [NWG][2][BR]
+  static constexpr int OFF_DVEC = OFF_LSE + 2 * NWG * BR * 4; // [NWG][2][BR]
+  static constexpr int BYTES = OFF_DVEC + 2 * NWG * BR * 4 + 1024;  // + slack
+  static_assert(2 * NWG * Q_TILE >= 128 * D * 4,
+                "the Q buffers hold one warpgroup's dK and dV");
+};
 
 // wait at barrier 1 + wg for the 128 threads of warpgroup wg
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
@@ -420,6 +428,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
     __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
     Strides st, float scale, int causal) {
   using namespace sm90;
+  static_assert(D == 64 || D == 128, "one or two 64-column panels");
+  using S = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -436,6 +446,9 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
   // 8j + col0 + {0, 1} (q rows in S^T and dP^T, head_dim in dK and dV)
   const int row0 = 16 * warp + lane / 4;
   const int col0 = 2 * (lane % 4);
+  // the lbo of Q and dO read MN-major: their panel stride at D = 128; one
+  // panel at D = 64, where no product reads it (sm90.cuh)
+  constexpr uint32_t lbo = D == 128 ? PANEL : 16;
 
   // CTA c takes kv tile c, then (causal) kv tile n_kt - 1 - c: the two
   // see n_qt + 1 q tiles per head together, so every CTA does the same work
@@ -458,36 +471,37 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
       const int h = hk * n_rep + s / per_rep;
       const int q0 = (t0 + s % per_rep) * BR;
       const int buf = wg * 2 + (i & 1);
-      load_tile_sw128<BR, 128>(base + OFF_Q + buf * Q_TILE,
-                               q + b * st.q_b + h * st.q_h, q0, Sq, st.q_s,
-                               wt);
-      load_tile_sw128<BR, 128>(base + OFF_DO + buf * Q_TILE,
-                               dout + b * st.o_b + h * st.o_h, q0, Sq,
-                               st.o_s, wt);
+      load_tile_sw128<BR, 128, D>(base + S::OFF_Q + buf * S::Q_TILE,
+                                  q + b * st.q_b + h * st.q_h, q0, Sq,
+                                  st.q_s, wt);
+      load_tile_sw128<BR, 128, D>(base + S::OFF_DO + buf * S::Q_TILE,
+                                  dout + b * st.o_b + h * st.o_h, q0, Sq,
+                                  st.o_s, wt);
       if (wt < 2 * BR) {
         const int r = wt % BR;
         const bool in = q0 + r < Sq;
         const float* src = (wt < BR ? lse : dvec) +
                            (long long)(b * Hq + h) * Sq + (in ? q0 + r : 0);
-        cp_async_4(base + (wt < BR ? OFF_LSE : OFF_DVEC) + (buf * BR + r) * 4,
-                   src, in ? 4 : 0);
+        cp_async_4(
+            base + (wt < BR ? S::OFF_LSE : S::OFF_DVEC) + (buf * BR + r) * 4,
+            src, in ? 4 : 0);
       }
     };
 
     __syncthreads();  // the previous pass is done with K, V and the buffers
-    load_tile_sw128<BK, NT>(base + OFF_K, k + b * st.k_b + hk * st.k_h, k0,
-                            Skv, st.k_s, tid);
-    load_tile_sw128<BK, NT>(base + OFF_V, v + b * st.v_b + hk * st.v_h, k0,
-                            Skv, st.v_s, tid);
+    load_tile_sw128<BK, NT, D>(base + S::OFF_K, k + b * st.k_b + hk * st.k_h,
+                               k0, Skv, st.k_s, tid);
+    load_tile_sw128<BK, NT, D>(base + S::OFF_V, v + b * st.v_b + hk * st.v_h,
+                               k0, Skv, st.v_s, tid);
     if (n_mine > 0) load_step(0);
     cp_async_commit();
     cp_async_wait_all();
     fence_proxy_async();
     __syncthreads();  // K, V and every warpgroup's first step are in
 
-    float acc_k[64], acc_v[64];
+    float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
     for (int i = 0; i < n_mine; ++i) {
       const int buf = wg * 2 + (i & 1);
@@ -501,33 +515,31 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
       cp_async_commit();
 
       const int q0 = (t0 + (wg + NWG * i) % per_rep) * BR;
-      const uint32_t qs = base + OFF_Q + buf * Q_TILE;
-      const uint32_t dos = base + OFF_DO + buf * Q_TILE;
+      const uint32_t qs = base + S::OFF_Q + buf * S::Q_TILE;
+      const uint32_t dos = base + S::OFF_DO + buf * S::Q_TILE;
       const float* lse_s =
-          reinterpret_cast<const float*>(sbase + OFF_LSE) + buf * BR;
+          reinterpret_cast<const float*>(sbase + S::OFF_LSE) + buf * BR;
       const float* dvec_s =
-          reinterpret_cast<const float*>(sbase + OFF_DVEC) + buf * BR;
+          reinterpret_cast<const float*>(sbase + S::OFF_DVEC) + buf * BR;
 
-      // S^T = K Q^T and dP^T = V dO^T, [BK x BR], head_dim in 8 k16 steps
-      // (K-major: the step moves 32 bytes inside a 64-column panel)
+      // S^T = K Q^T and dP^T = V dO^T, [BK x BR], head_dim in D / 16 k16
+      // steps (K-major: the step moves 32 bytes inside a 64-column panel)
       float s_acc[BR / 2], dp_acc[BR / 2];
 #pragma unroll
       for (int i = 0; i < BR / 2; ++i) s_acc[i] = dp_acc[i] = 0.f;
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t a = (ks >> 2) * (KV_TILE / 2) + (ks & 3) * 32;
-        const uint32_t bo = (ks >> 2) * (Q_TILE / 2) + (ks & 3) * 32;
-        wgmma_m64n64k16_ss(s_acc, desc_sw128(base + OFF_K + a, 16, 1024),
-                 desc_sw128(qs + bo, 16, 1024), ks);
+        const uint32_t off = (ks >> 2) * PANEL + (ks & 3) * 32;
+        wgmma_m64n64k16_ss(s_acc, desc_sw128(base + S::OFF_K + off, 16, 1024),
+                           desc_sw128(qs + off, 16, 1024), ks);
       }
       wgmma_commit();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t a = (ks >> 2) * (KV_TILE / 2) + (ks & 3) * 32;
-        const uint32_t bo = (ks >> 2) * (Q_TILE / 2) + (ks & 3) * 32;
-        wgmma_m64n64k16_ss(dp_acc, desc_sw128(base + OFF_V + a, 16, 1024),
-                 desc_sw128(dos + bo, 16, 1024), ks);
+        const uint32_t off = (ks >> 2) * PANEL + (ks & 3) * 32;
+        wgmma_m64n64k16_ss(dp_acc, desc_sw128(base + S::OFF_V + off, 16, 1024),
+                           desc_sw128(dos + off, 16, 1024), ks);
       }
       wgmma_commit();
 
@@ -559,8 +571,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BR / 16; ++kk)
-        wgmma_m64n128k16_rs_bt(
-            acc_v, pa[kk], desc_sw128(dos + kk * 16 * 128, Q_TILE / 2, 1024));
+        wgmma_rs_bt(acc_v, pa[kk], desc_sw128(dos + kk * 16 * 128, lbo, 1024));
       wgmma_commit();
 
       // dS^T = P^T * (dP^T - Dvec), with the f32 P, while dV runs
@@ -584,8 +595,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BR / 16; ++kk)
-        wgmma_m64n128k16_rs_bt(
-            acc_k, da[kk], desc_sw128(qs + kk * 16 * 128, Q_TILE / 2, 1024));
+        wgmma_rs_bt(acc_k, da[kk], desc_sw128(qs + kk * 16 * 128, lbo, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(pa);
@@ -597,21 +607,21 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
     // the second warpgroup's sums to the first, in a fixed order: each
     // thread's registers to the same thread of the first warpgroup, through
     // the Q buffers
-    float* red = reinterpret_cast<float*>(sbase + OFF_Q);
+    float* red = reinterpret_cast<float*>(sbase + S::OFF_Q);
     __syncthreads();  // every step is done with the Q buffers
     if (wg == 1) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < D / 2; ++i) {
         red[i * 128 + wt] = acc_k[i];
-        red[(64 + i) * 128 + wt] = acc_v[i];
+        red[(D / 2 + i) * 128 + wt] = acc_v[i];
       }
     }
     __syncthreads();
     if (wg == 1) continue;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < D / 2; ++i) {
       acc_k[i] += red[i * 128 + wt];
-      acc_v[i] += red[(64 + i) * 128 + wt];
+      acc_v[i] += red[(D / 2 + i) * 128 + wt];
     }
 
     // scale dK, round both to bf16 once, write from registers
@@ -635,12 +645,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
 // --- dQ on tensor cores: bf16, head_dim 128 --------------------------------
 
 // shared memory: each warpgroup's Q and dO tiles, then two stages each of
-// K and V
+// K and V, every tile 64 rows of 128 columns
+constexpr int DQ_D = 128;
+constexpr int DQ_TILE = 64 * DQ_D * 2;
 constexpr int DQ_OFF_Q = 0;
-constexpr int DQ_OFF_DO = DQ_OFF_Q + NWG * Q_TILE;
-constexpr int DQ_OFF_K = DQ_OFF_DO + NWG * Q_TILE;
-constexpr int DQ_OFF_V = DQ_OFF_K + 2 * KV_TILE;
-constexpr int DQ_SMEM_BYTES = DQ_OFF_V + 2 * KV_TILE + 1024;  // + slack
+constexpr int DQ_OFF_DO = DQ_OFF_Q + NWG * DQ_TILE;
+constexpr int DQ_OFF_K = DQ_OFF_DO + NWG * DQ_TILE;
+constexpr int DQ_OFF_V = DQ_OFF_K + 2 * DQ_TILE;
+constexpr int DQ_SMEM_BYTES = DQ_OFF_V + 2 * DQ_TILE + 1024;  // + slack
 constexpr int DQ_BQ = BR * NWG;   // q rows per CTA
 
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
@@ -650,6 +662,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq, int Sq,
     int Skv, int Hq, int Hkv, Strides st, float scale, int causal) {
   using namespace sm90;
+  constexpr int D = DQ_D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
 
@@ -680,8 +693,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
 
   const __nv_bfloat16* kb = k + b * st.k_b + hk * st.k_h;
   const __nv_bfloat16* vb = v + b * st.v_b + hk * st.v_h;
-  const uint32_t qs = base + DQ_OFF_Q + wg * Q_TILE;
-  const uint32_t dos = base + DQ_OFF_DO + wg * Q_TILE;
+  const uint32_t qs = base + DQ_OFF_Q + wg * DQ_TILE;
+  const uint32_t dos = base + DQ_OFF_DO + wg * DQ_TILE;
   if (n_tiles > 0) {
     load_tile_sw128<BR, 128>(qs, q + b * st.q_b + h * st.q_h, qw, Sq,
                              st.q_s, wt);
@@ -711,7 +724,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     fence_proxy_async();
     __syncthreads();  // tile t is in; every thread is done with tile t - 1
     if (t + 1 < n_tiles) {
-      const uint32_t nxt = (stage ^ 1) * KV_TILE;
+      const uint32_t nxt = (stage ^ 1) * DQ_TILE;
       load_tile_sw128<BK, NT>(base + DQ_OFF_K + nxt, kb, (t + 1) * BK, Skv,
                               st.k_s, tid);
       load_tile_sw128<BK, NT>(base + DQ_OFF_V + nxt, vb, (t + 1) * BK, Skv,
@@ -720,8 +733,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     cp_async_commit();
     const int k0 = t * BK;
     if (k0 > wg_last) continue;  // wholly above this warpgroup's diagonal
-    const uint32_t kts = base + DQ_OFF_K + stage * KV_TILE;
-    const uint32_t vts = base + DQ_OFF_V + stage * KV_TILE;
+    const uint32_t kts = base + DQ_OFF_K + stage * DQ_TILE;
+    const uint32_t vts = base + DQ_OFF_V + stage * DQ_TILE;
 
     // S = Q K^T and dP = dO V^T [BR x BK], head_dim in 8 k16 steps, all
     // operands K-major
@@ -731,14 +744,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * (KV_TILE / 2) + (kk & 3) * 32;
+      const uint32_t off = (kk >> 2) * PANEL + (kk & 3) * 32;
       wgmma_m64n64k16_ss(s, desc_sw128(qs + off, 16, 1024),
                          desc_sw128(kts + off, 16, 1024), kk);
     }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * (KV_TILE / 2) + (kk & 3) * 32;
+      const uint32_t off = (kk >> 2) * PANEL + (kk & 3) * 32;
       wgmma_m64n64k16_ss(dp, desc_sw128(dos + off, 16, 1024),
                          desc_sw128(vts + off, 16, 1024), kk);
     }
@@ -787,7 +800,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_m64n128k16_rs_bt(
-          acc, da[kk], desc_sw128(kts + kk * 16 * 128, KV_TILE / 2, 1024));
+          acc, da[kk], desc_sw128(kts + kk * 16 * 128, PANEL, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(da);
@@ -821,11 +834,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int B, int Sq, int Skv, int Hq, int Hkv,
                       const long long* st, float scale, int causal,
                       cudaStream_t stream) {
-  const size_t smem =
+  constexpr size_t smem =
       (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1) + 2 * BQ) * sizeof(float);
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr auto kern = flash_bwd_dq_kernel<T, D>;
+  cudaError_t err = sm90::smem_limit_once<kern>((int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, NT, smem, stream>>>(
@@ -840,11 +852,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int B, int Sq, int Skv, int Hq,
                        int Hkv, const long long* st, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem =
+  constexpr size_t smem =
       (size_t)(4 * 64 * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ) * sizeof(float);
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr auto kern = flash_bwd_dkv_kernel<T, D>;
+  cudaError_t err = sm90::smem_limit_once<kern>((int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + BK - 1) / BK, B * Hkv);
   kern<<<grid, NT, smem, stream>>>(
@@ -853,18 +864,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* dvec, void* dk, void* dv, int B, int Sq,
                           int Skv, int Hq, int Hkv, const long long* st,
                           float scale, int causal, cudaStream_t stream) {
-  auto kern = tc::flash_bwd_dkv_tc_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+  constexpr auto kern = tc::flash_bwd_dkv_tc_kernel<D>;
+  constexpr int smem = tc::DkvSmem<D>::BYTES;
+  cudaError_t err = sm90::smem_limit_once<kern>(smem);
   if (err != cudaSuccess) return err;
   const int n_kt = (Skv + tc::BK - 1) / tc::BK;
   dim3 grid(causal ? (n_kt + 1) / 2 : n_kt, B * Hkv);
-  kern<<<grid, tc::NT, tc::SMEM_BYTES, stream>>>(
+  kern<<<grid, tc::NT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, dvec,
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, Sq, Skv, Hq, Hkv,
@@ -877,9 +889,8 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const float* dvec, void* dq, int B, int Sq, int Skv,
                          int Hq, int Hkv, const long long* st, float scale,
                          int causal, cudaStream_t stream) {
-  auto kern = tc::flash_bwd_dq_tc_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::DQ_SMEM_BYTES);
+  constexpr auto kern = tc::flash_bwd_dq_tc_kernel;
+  cudaError_t err = sm90::smem_limit_once<kern>(tc::DQ_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + tc::DQ_BQ - 1) / tc::DQ_BQ, B * Hq);
   kern<<<grid, tc::NT, tc::DQ_SMEM_BYTES, stream>>>(
@@ -972,24 +983,31 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1) switch (D) {
     case 16: DKV(__nv_bfloat16, 16);
     case 32: DKV(__nv_bfloat16, 32);
-    case 64: DKV(__nv_bfloat16, 64);
   }
 #undef DKV
-  return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_bwd_dkv_tc
+  // bf16 with D = 64, 128: flash_bwd_dkv_tc
+  return (int)cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dkv, on the tensor cores: bf16 (dtype 1) with D = 128 only,
-// q, k, v and dO at 16-byte-aligned addresses with (batch, seq, head)
-// strides in multiples of 8 elements; anything else returns an error.
+// As flash_bwd_dkv, on the tensor cores: bf16 (dtype 1) with D = 64 or
+// 128 only, q, k, v and dO at 16-byte-aligned addresses with (batch, seq,
+// head) strides in multiples of 8 elements; anything else returns an
+// error.
 extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* dvec, void* dk, void* dv, int B,
                                 int Sq, int Skv, int Hq, int Hkv, int D,
                                 const long long* strides, float scale,
                                 int causal, int dtype, void* stream) {
-  if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   if (int err = check_tc_alignment(q, k, v, dout, strides)) return err;
-  return launch_dkv_tc(q, k, v, dout, (const float*)lse, (const float*)dvec,
-                       dk, dv, B, Sq, Skv, Hq, Hkv, strides, scale, causal,
-                       (cudaStream_t)stream);
+  const float* l = (const float*)lse;
+  const float* dvc = (const float*)dvec;
+  if (D == 64)
+    return launch_dkv_tc<64>(q, k, v, dout, l, dvc, dk, dv, B, Sq, Skv, Hq,
+                             Hkv, strides, scale, causal,
+                             (cudaStream_t)stream);
+  return launch_dkv_tc<128>(q, k, v, dout, l, dvc, dk, dv, B, Sq, Skv, Hq,
+                            Hkv, strides, scale, causal,
+                            (cudaStream_t)stream);
 }

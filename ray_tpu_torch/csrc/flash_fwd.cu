@@ -18,14 +18,22 @@
 // D=128, causal, bf16) the work is 2 causal products, ~2.2 GFLOP on
 // ~10.5 MB at S=512 (prefill) and 35.4 GFLOP on ~42 MB at S=2048
 // (training, 64 launches a step): bound by operations on the tensor cores
-// at S=2048 (~0.035 ms), by the bytes at S=512 (~0.003 ms).
+// at S=2048 (~0.035 ms), by the bytes at S=512 (~0.003 ms). At CLIP
+// ViT-B/16's vision shape (B=128, S=197, 12 heads of 64, non-causal) it
+// is 15.3 GFLOP on ~156 MB: bound by the bytes (~0.047 ms).
 //
 // Two kernels:
 //
-// flash_fwd_tc_kernel: bf16 with D = 128 (the serving and training
-// paths), on the tensor cores (wgmma, sm90.cuh). A CTA is two warpgroups
-// on 128 q rows of one (b, q head), each warpgroup on its own 64 rows; its
-// Q tile is loaded once into the 128-byte-swizzled layout and stays. K
+// flash_fwd_tc_kernel<D>: bf16 with D = 64 or 128 (the serving and
+// training paths, CLIP's towers), on the tensor cores (wgmma, sm90.cuh).
+// D sets the tiles (one 64-column swizzle panel a row at 64, two at 128),
+// the D / 16 k-steps of Q K^T, the D / 2 accumulator registers of O and
+// the N of the P V product; at D = 64 two CTAs share an SM (49 KB of
+// shared memory and 120 registers a thread each), so one CTA's loads
+// overlap the other's products. A
+// CTA is two warpgroups on 128 q rows of one (b, q head), each warpgroup
+// on its own 64 rows; its Q tile is loaded once into the
+// 128-byte-swizzled layout and stays. K
 // and V stream through a cp.async double buffer that both warpgroups
 // share: the next kv tile loads while this one's products run, one
 // __syncthreads per tile. Per kv tile a warpgroup computes S = Q K^T
@@ -34,16 +42,16 @@
 // online softmax in registers in the exp2 domain (row max in-thread, then
 // over the four lanes of a quad; masked entries give exactly 0). P, rounded
 // to bf16 (v's dtype, the TPU kernel's p.astype), becomes the A operand of
-// O += P V (m64n128k16) in registers, V read MN-major from its tile; the
-// row sum uses the f32 P. O stays in 64 f32 registers per thread. A
+// O += P V (m64nDk16) in registers, V read MN-major from its tile; the
+// row sum uses the f32 P. O stays in D / 2 f32 registers per thread. A
 // warpgroup skips the tiles wholly above its own diagonal but reaches every
 // barrier. Causal CTAs launch heaviest q block first, so the tail is
 // short. What bounds it now is how much of the tensor cores' time two
 // warpgroups keep busy between the softmax and the per-tile sync, not the
 // bytes.
 //
-// flash_fwd_kernel (f32, and bf16 with D = 16, 32 or 64; f32 also at
-// D = 128): the first version, with f32 FMAs out of shared memory (no
+// flash_fwd_kernel (f32 with D = 16, 32, 64 or 128, and bf16 with D = 16
+// or 32): the first version, with f32 FMAs out of shared memory (no
 // wgmma, no TMA), bound by shared-memory bandwidth and the f32 FMA rate,
 // far from the tensor-core bound; the tests hold f32 at 1e-4, which a
 // tensor-core path cannot. One CTA of 256
@@ -258,12 +266,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
-  const size_t smem =
+  constexpr size_t smem =
       (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ) *
       sizeof(float);
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr auto kern = flash_fwd_kernel<T, D>;
+  cudaError_t err = sm90::smem_limit_once<kern>((int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, NT, smem, stream>>>(
@@ -273,38 +280,50 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// --- forward on tensor cores: bf16, head_dim 128 ---------------------------
+// --- forward on tensor cores: bf16, head_dim 64 or 128 --------------------
 
 namespace tc {
 
-constexpr int D = 128;
 constexpr int BM = 64;    // q rows per warpgroup: the M of every product
 constexpr int BN = 64;    // kv rows per tile
 constexpr int NWG = 2;    // warpgroups, each on its own BM q rows
 constexpr int NT = 128 * NWG;
 constexpr int BQ = BM * NWG;   // q rows per CTA
+constexpr int PANEL = 64 * 128;   // a 64-row tile's 64-column panel, bytes
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// shared memory, byte offsets from a 1024-byte-aligned base: each
-// warpgroup's Q tile, then two stages each of K and V
-constexpr int TILE = 64 * D * 2;
-constexpr int OFF_Q = 0;
-constexpr int OFF_K = OFF_Q + NWG * TILE;
-constexpr int OFF_V = OFF_K + 2 * TILE;
-constexpr int SMEM_BYTES = OFF_V + 2 * TILE + 1024;   // + alignment slack
+// Shared memory, byte offsets from a 1024-byte-aligned base: each
+// warpgroup's Q tile, then two stages each of K and V; every tile 64 rows
+// of D columns (one 64-column panel at D = 64, two at 128).
+template <int D>
+struct Smem {
+  static constexpr int TILE = 64 * D * 2;
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_K = OFF_Q + NWG * TILE;
+  static constexpr int OFF_V = OFF_K + 2 * TILE;
+  static constexpr int BYTES = OFF_V + 2 * TILE + 1024;   // + alignment slack
+};
 
 // Strides in elements, (batch, seq, head) of q, k and v.
 struct Strides {
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
 };
 
+// At D = 64 a CTA needs 49 KB of shared memory and 120 registers a
+// thread, so two share an SM and one CTA's loads overlap the other's
+// products; at D = 128 (97 KB, 159 registers) one fits. Asking ptxas for
+// two at D = 64 (__launch_bounds__(256, 2)) changed neither the registers
+// nor the time on the H100 (PERF.md), so the minimum is one at both.
+template <int D>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, Strides st,
     float scale, int causal) {
   using namespace sm90;
+  static_assert(D == 64 || D == 128, "one or two 64-column panels");
+  using S = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
 
@@ -337,18 +356,18 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
 
   const __nv_bfloat16* kb = k + b * st.k_b + hk * st.k_h;
   const __nv_bfloat16* vb = v + b * st.v_b + hk * st.v_h;
-  const uint32_t qs = base + OFF_Q + wg * TILE;
+  const uint32_t qs = base + S::OFF_Q + wg * S::TILE;
   if (n_tiles > 0) {
-    load_tile_sw128<BM, 128>(qs, q + b * st.q_b + h * st.q_h, qw, Sq, st.q_s,
-                             wt);
-    load_tile_sw128<BN, NT>(base + OFF_K, kb, 0, Skv, st.k_s, tid);
-    load_tile_sw128<BN, NT>(base + OFF_V, vb, 0, Skv, st.v_s, tid);
+    load_tile_sw128<BM, 128, D>(qs, q + b * st.q_b + h * st.q_h, qw, Sq,
+                                st.q_s, wt);
+    load_tile_sw128<BN, NT, D>(base + S::OFF_K, kb, 0, Skv, st.k_s, tid);
+    load_tile_sw128<BN, NT, D>(base + S::OFF_V, vb, 0, Skv, st.v_s, tid);
   }
   cp_async_commit();
 
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   // running max (log2 domain) and this thread's share of the row sum
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
@@ -358,19 +377,19 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
     fence_proxy_async();
     __syncthreads();  // tile t is in; every thread is done with tile t - 1
     if (t + 1 < n_tiles) {
-      const uint32_t nxt = (stage ^ 1) * TILE;
-      load_tile_sw128<BN, NT>(base + OFF_K + nxt, kb, (t + 1) * BN, Skv,
-                              st.k_s, tid);
-      load_tile_sw128<BN, NT>(base + OFF_V + nxt, vb, (t + 1) * BN, Skv,
-                              st.v_s, tid);
+      const uint32_t nxt = (stage ^ 1) * S::TILE;
+      load_tile_sw128<BN, NT, D>(base + S::OFF_K + nxt, kb, (t + 1) * BN,
+                                 Skv, st.k_s, tid);
+      load_tile_sw128<BN, NT, D>(base + S::OFF_V + nxt, vb, (t + 1) * BN,
+                                 Skv, st.v_s, tid);
     }
     cp_async_commit();
     const int k0 = t * BN;
     if (k0 > wg_last) continue;  // wholly above this warpgroup's diagonal
-    const uint32_t kts = base + OFF_K + stage * TILE;
-    const uint32_t vts = base + OFF_V + stage * TILE;
+    const uint32_t kts = base + S::OFF_K + stage * S::TILE;
+    const uint32_t vts = base + S::OFF_V + stage * S::TILE;
 
-    // S = Q K^T [BM x BN], head_dim in 8 k16 steps (K-major: the step
+    // S = Q K^T [BM x BN], head_dim in D / 16 k16 steps (K-major: the step
     // moves 32 bytes inside a 64-column panel)
     float s[32];
 #pragma unroll
@@ -378,7 +397,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * (TILE / 2) + (kk & 3) * 32;
+      const uint32_t off = (kk >> 2) * PANEL + (kk & 3) * 32;
       wgmma_m64n64k16_ss(s, desc_sw128(qs + off, 16, 1024),
                          desc_sw128(kts + off, 16, 1024), kk);
     }
@@ -433,15 +452,15 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
       }
     }
 
-    // O += P V: P rounded to bf16 in registers, V read MN-major, its kv
-    // rows the reduction
+    // O += P V (m64nDk16): P rounded to bf16 in registers, V read
+    // MN-major, its kv rows the reduction
     uint32_t pa[BN / 16][4];
     to_a_operand(s, pa);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_m64n128k16_rs_bt(acc, pa[kk],
-                             desc_sw128(vts + kk * 16 * 128, TILE / 2, 1024));
+      wgmma_rs_bt(acc, pa[kk], desc_sw128(vts + kk * 16 * 128,
+                                          D == 128 ? PANEL : 16, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(pa);
@@ -469,16 +488,17 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
 
 }  // namespace tc
 
+template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                       const long long* s, float scale, int causal,
                       cudaStream_t stream) {
-  auto kern = tc::flash_fwd_tc_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+  constexpr auto kern = tc::flash_fwd_tc_kernel<D>;
+  constexpr int smem = tc::Smem<D>::BYTES;
+  cudaError_t err = sm90::smem_limit_once<kern>(smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + tc::BQ - 1) / tc::BQ, B * Hq);
-  kern<<<grid, tc::NT, tc::SMEM_BYTES, stream>>>(
+  kern<<<grid, tc::NT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, Sq, Skv, Hq, Hkv,
       tc::Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]},
@@ -508,25 +528,27 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1) switch (D) {
     case 16: FWD(__nv_bfloat16, 16);
     case 32: FWD(__nv_bfloat16, 32);
-    case 64: FWD(__nv_bfloat16, 64);
   }
 #undef FWD
-  return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_fwd_tc
+  return (int)cudaErrorInvalidValue;  // bf16 with D = 64, 128: flash_fwd_tc
 }
 
-// As flash_fwd, on the tensor cores: bf16 (dtype 1) with D = 128 only, q,
-// k and v at 16-byte-aligned addresses with (batch, seq, head) strides in
-// multiples of 8 elements; anything else returns an error.
+// As flash_fwd, on the tensor cores: bf16 (dtype 1) with D = 64 or 128
+// only, q, k and v at 16-byte-aligned addresses with (batch, seq, head)
+// strides in multiples of 8 elements; anything else returns an error.
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int Sq, int Skv,
                             int Hq, int Hkv, int D, const long long* strides,
                             float scale, int causal, int dtype,
                             void* stream) {
-  if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   unsigned long long bits = (unsigned long long)q | (unsigned long long)k |
                             (unsigned long long)v;
   for (int i = 0; i < 9; ++i) bits |= (unsigned long long)strides[i] * 2;
   if (bits % 16) return (int)cudaErrorMisalignedAddress;
-  return launch_tc(q, k, v, o, (float*)lse, B, Sq, Skv, Hq, Hkv, strides,
-                   scale, causal, (cudaStream_t)stream);
+  if (D == 64)
+    return launch_tc<64>(q, k, v, o, (float*)lse, B, Sq, Skv, Hq, Hkv,
+                         strides, scale, causal, (cudaStream_t)stream);
+  return launch_tc<128>(q, k, v, o, (float*)lse, B, Sq, Skv, Hq, Hkv,
+                        strides, scale, causal, (cudaStream_t)stream);
 }

@@ -489,26 +489,15 @@ __global__ void __launch_bounds__(NT) paged_decode_combine_kernel(
 // the combine's shared memory at MAX_SPLITS splits and MAX_REP: 197 KB
 constexpr int COMBINE_SMEM_MAX = (2 * (MAX_SPLITS + 1) + 1) * MAX_REP * 4;
 
-// Each kernel's shared-memory limit is raised once per device (a static
-// of this instantiation), not on every call of the decode loop.
+// Each kernel's shared-memory limit is raised once per device
+// (sm90::smem_limit_once), not on every call of the decode loop.
 template <typename T, int HD, auto Kern>
 cudaError_t launch(int smem, const Params& a, cudaStream_t stream) {
   constexpr auto comb = paged_decode_combine_kernel<T, HD>;
-  constexpr int MAX_DEVICES = 64;
-  static cudaError_t attrs[MAX_DEVICES];
-  static bool done[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = sm90::smem_limit_once<Kern>(smem);
+  if (err == cudaSuccess)
+    err = sm90::smem_limit_once<comb>(COMBINE_SMEM_MAX);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!done[dev]) {   // two threads racing here both set the same values
-    err = cudaFuncSetAttribute(
-        Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attrs[dev] = err != cudaSuccess ? err : cudaFuncSetAttribute(
-        comb, cudaFuncAttributeMaxDynamicSharedMemorySize, COMBINE_SMEM_MAX);
-    done[dev] = true;
-  }
-  if (attrs[dev] != cudaSuccess) return attrs[dev];
   Kern<<<dim3(a.kvh, a.B, a.n_splits + 1), NT, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

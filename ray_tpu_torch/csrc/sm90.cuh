@@ -2,14 +2,17 @@
 // inline PTX (no CUTLASS, no PyTorch headers):
 //   - cp.async copies global -> shared, 16 or 4 bytes, zero-filling what
 //     lies past the source's valid bytes, and waits on their groups;
-//   - the 128-byte-swizzled layout of a [ROWS x 128] bf16 tile that wgmma
-//     reads: two panels of 64 columns, each ROWS rows of 128 bytes, the
-//     16-byte chunk c of row r stored at chunk c ^ (r % 8) (the layout TMA
-//     writes under CU_TENSOR_MAP_SWIZZLE_128B); every tile starts on a
-//     1024-byte boundary;
+//   - the 128-byte-swizzled layout of a [ROWS x COLS] bf16 tile that wgmma
+//     reads, COLS 64 or 128: COLS / 64 panels of 64 columns, each ROWS rows
+//     of 128 bytes (one swizzle atom a row), the 16-byte chunk c of row r
+//     stored at chunk c ^ (r % 8) (the layout TMA writes under
+//     CU_TENSOR_MAP_SWIZZLE_128B); every tile starts on a 1024-byte
+//     boundary;
 //   - wgmma shared-memory descriptors for that layout, read K-major (the
-//     128 columns are the reduction) or MN-major (the ROWS rows are);
-//   - the bf16 wgmma shapes with f32 accumulators that the kernels use.
+//     COLS columns are the reduction) or MN-major (the ROWS rows are);
+//   - the bf16 wgmma shapes with f32 accumulators that the kernels use;
+//   - a host helper that raises a kernel's shared-memory limit once per
+//     device.
 //
 // Accumulator layout of wgmma m64nNk16 (f32), thread t of the warpgroup,
 // warp w = t / 32, lane l = t % 32: d[4j + 2i + c] holds row
@@ -22,6 +25,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -68,25 +72,29 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // byte offset of 16-byte chunk c (0..15) of row r in a swizzled
-// [ROWS x 128] bf16 tile
+// [ROWS x 128] bf16 tile; chunks 0..7 are also the whole row of a
+// [ROWS x 64] tile, which is one panel
 template <int ROWS>
 __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
   return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// rows [r0, r0 + ROWS) of a bf16 matrix with 128 columns (row stride in
-// elements, 16-byte aligned) into the swizzled tile at dst, by NT threads,
-// this one thread t of them; rows at or past n are zero
-template <int ROWS, int NT>
+// rows [r0, r0 + ROWS) of a bf16 matrix with COLS columns (64 or 128; row
+// stride in elements, 16-byte aligned) into the swizzled tile at dst, by
+// NT threads, this one thread t of them; rows at or past n are zero
+template <int ROWS, int NT, int COLS = 128>
 __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
                                                 const __nv_bfloat16* src,
                                                 int r0, int n,
                                                 long long row_stride, int t) {
-  static_assert((ROWS * 16) % NT == 0, "whole chunks per thread");
+  static_assert(COLS == 64 || COLS == 128, "one or two 64-column panels");
+  constexpr int CHUNKS = COLS / 8;   // 16-byte chunks a row
+  static_assert((ROWS * CHUNKS) % NT == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < ROWS * 16 / NT; ++i) {
-    const int idx = t + i * NT;
-    const int r = idx >> 4, c = idx & 15;
+  for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
+    // unsigned: the division and remainder are a shift and a mask
+    const unsigned idx = t + i * NT;
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
     const bool in = r0 + r < n;
     const __nv_bfloat16* p =
         in ? src + (long long)(r0 + r) * row_stride + c * 8 : src;
@@ -97,7 +105,10 @@ __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
 // wgmma matrix descriptor, 128-byte swizzle. K-major: lbo is unused (16),
 // sbo = 1024, the stride between groups of 8 rows. MN-major: lbo = the
 // stride between the 64-column panels, sbo = 1024, the stride between
-// groups of 8 rows of the reduction.
+// groups of 8 rows of the reduction. An MN-major B of N = 64 columns is one
+// panel, so no product reads its lbo: the kernels pass 16, as for K-major
+// (the card test of sm90_probe.cu checks that another lbo gives the same
+// bits, and that a wrong sbo does not).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
@@ -182,6 +193,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 64] += A B, A (bf16) from registers in the accumulator layout,
+// B read from shared memory MN-major (transposed), one 64-column panel
+__device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D[64 x 128] += A B, A (bf16) from registers in the accumulator layout,
 // B read from shared memory MN-major (transposed)
 __device__ __forceinline__ void wgmma_m64n128k16_rs_bt(float (&d)[64],
@@ -207,6 +238,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_bt(float (&d)[64],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x N] += A B at N = 64 or 128, by the accumulator's size: the head
+// dim of the kernels' P V, P^T dO and dS^T Q products
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  wgmma_m64n64k16_rs_bt(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  wgmma_m64n128k16_rs_bt(d, a, b);
+}
+
+// Raise Kern's dynamic shared-memory limit to smem bytes once per device
+// (a static of this instantiation), not on every launch; the first call's
+// result is returned on every later one. Two threads racing here both set
+// the same value.
+template <auto Kern>
+cudaError_t smem_limit_once(int smem) {
+  constexpr int MAX_DEVICES = 64;
+  static cudaError_t attrs[MAX_DEVICES];
+  static bool done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    attrs[dev] = cudaFuncSetAttribute(
+        Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    done[dev] = true;
+  }
+  return attrs[dev];
 }
 
 }  // namespace sm90

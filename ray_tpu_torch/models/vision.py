@@ -5,12 +5,16 @@ The reference's choices are kept: GroupNorm instead of BatchNorm (no
 running statistics), statistics in f32 with the population variance,
 NHWC activations and HWIO weights (so a ``ray_tpu`` tree converts leaf
 for leaf), and a head whose bf16 product has an f32 result
-(``ops.quant.logits_matmul``). The convolution is
+(``ops.quant.logits_matmul``). A bf16 convolution is
 ``torch.nn.functional.conv2d``, as the reference's is XLA's
-``conv_general_dilated``; its ``padding="SAME"`` is reckoned as XLA does
-and applied with ``F.pad`` first: at stride 2 on an even input it pads
-less before than after, which ``conv2d``'s symmetric ``padding`` cannot
-express. Sharding axes (``resnet_param_axes``) belong to the multi-device
+``conv_general_dilated``; an f32 one is the padded input's patches
+(``unfold``) times the weight in one matmul. So an f32 convolution
+follows the same matmul precision setting as the port's other f32
+matmuls, which is IEEE f32 at PyTorch's default; the library's f32
+convolution on the card runs in TF32 at its own default.
+``padding="SAME"`` is reckoned as XLA does and applied with ``F.pad``
+first: at stride 2 on an even input it pads less before than after,
+which ``conv2d``'s symmetric ``padding`` cannot express. Sharding axes (``resnet_param_axes``) belong to the multi-device
 plane and are not ported.
 """
 
@@ -120,13 +124,23 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 def _conv(x, w, stride: int = 1):
-    """NHWC x, HWIO w -> NHWC, SAME padding."""
-    kh, kw = w.shape[:2]
+    """NHWC x, HWIO w -> NHWC, SAME padding: ``F.conv2d`` for bf16, the
+    patches times the weight in one f32 matmul for f32 (see the module
+    docstring)."""
+    kh, kw, cin, cout = w.shape
     top, bottom = same_padding(x.shape[1], kh, stride)
     left, right = same_padding(x.shape[2], kw, stride)
-    xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
-    out = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride)
-    return out.permute(0, 2, 3, 1)
+    if x.dtype != torch.float32:
+        xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+        out = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride)
+        return out.permute(0, 2, 3, 1)
+    xp = F.pad(x, (0, 0, left, right, top, bottom))
+    # (B, OH, OW, C, kh, kw) -> rows of (kh, kw, C), HWIO's order
+    patches = xp.unfold(1, kh, stride).unfold(2, kw, stride)
+    b, oh, ow = patches.shape[:3]
+    rows = patches.permute(0, 1, 2, 4, 5, 3).reshape(b * oh * ow,
+                                                     kh * kw * cin)
+    return (rows @ w.reshape(kh * kw * cin, cout)).reshape(b, oh, ow, cout)
 
 
 def resnet_forward(params, images, cfg: ResNetConfig):

@@ -1,5 +1,5 @@
 """Tensor ops of the port: plain PyTorch (norms, rotary, the MoE
-mixture, the chunked SSD), plus the hand-written CUDA kernels behind
+mixture, the chunked SSD, weight-only int8 quantization), plus the hand-written CUDA kernels behind
 ``flash_attention`` (forward), ``flash_bwd_dq`` and ``flash_bwd_dkv``
 (backward) and ``paged_decode_attention``."""
 
@@ -14,6 +14,8 @@ from .norms import rms_norm
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_reference,
                               paged_decode_splits)
+from .quant import (dequantize_weight, embed_lookup, init_params_quantized,
+                    quantize_params, quantize_weight, weight_einsum)
 from .rotary import apply_rotary, rope_frequencies
 from .ssd import ssd_chunked, ssd_reference
 
@@ -27,4 +29,6 @@ __all__ = [
     "paged_decode_attention", "paged_decode_attention_reference",
     "paged_decode_splits", "rms_norm", "rope_frequencies", "ssd_chunked",
     "ssd_reference",
+    "quantize_weight", "dequantize_weight", "weight_einsum",
+    "embed_lookup", "quantize_params", "init_params_quantized",
 ]

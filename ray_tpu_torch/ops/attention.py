@@ -2,8 +2,9 @@
 whose forward (``csrc/flash_fwd.cu``) and two backward kernels
 (``csrc/flash_bwd.cu``, dQ and dK/dV) launch on CUDA tensors, while CPU
 tensors run their plain versions. Each of the three has a tensor-core
-kernel for bf16 with head_dim 128 and a SIMT kernel for the rest (f32, and
-head_dim 16, 32 and 64); :func:`_route` picks one. The head dims the
+kernel for bf16 at its tensor-core head dims (the forward and dK/dV at 64
+and 128, dQ at 128) and a SIMT kernel for the rest (f32, and the other
+head dims of 16, 32 and 64); :func:`_route` picks one. The head dims the
 kernels take are :data:`HEAD_DIMS`; any other raises on the card.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Layouts: q [B, Sq, Hq, D];
@@ -139,24 +140,32 @@ def _steps(t):
     return tuple(st if n > 1 else 0 for n, st in zip(t.shape, t.stride()))
 
 
+# the head dims at which each wrapper's bf16 inputs take its tensor-core
+# kernel (csrc/flash_fwd.cu flash_fwd_tc, csrc/flash_bwd.cu
+# flash_bwd_dq_tc and flash_bwd_dkv_tc)
+TC_HEAD_DIMS = {"flash_attention": (64, 128), "flash_bwd_dq": (128,),
+                "flash_bwd_dkv": (64, 128)}
+
+
 def _route(kernel: str, **tensors) -> str:
     """Which of ``kernel``'s two CUDA kernels takes these inputs (the
-    first is q): ``"tc"``, the tensor-core kernel, for bf16 with head_dim
-    128 whose tensors start at 16-byte-aligned addresses and have (batch,
-    seq, head) strides in multiples of 8 elements (16 bytes; a dimension
-    of size 1 is never stepped, so its stride does not count); ``"simt"``
-    for every other dtype and head_dim (f32; head_dim 16, 32, 64). Raises
-    for bf16 with head_dim 128 that is not so aligned: there is no
-    fallback.
+    first is q): ``"tc"``, the tensor-core kernel, for bf16 at a head_dim
+    in ``TC_HEAD_DIMS[kernel]`` whose tensors start at 16-byte-aligned
+    addresses and have (batch, seq, head) strides in multiples of 8
+    elements (16 bytes; a dimension of size 1 is never stepped, so its
+    stride does not count); ``"simt"`` for every other dtype and head_dim
+    (f32; bf16 at the other head dims). Raises for bf16 at a tensor-core
+    head_dim that is not so aligned: there is no fallback.
     Whether the kernels take the dtype and head_dim at all is the
     wrapper's check."""
     q = next(iter(tensors.values()))
-    if q.dtype != torch.bfloat16 or q.shape[-1] != 128:
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS[kernel]:
         return "simt"
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(st % 8 for st in _steps(t)[:3]):
             raise ValueError(
-                f"{kernel}: bf16 head_dim 128 needs {name} at a "
+                f"{kernel}: bf16 head_dim {d} needs {name} at a "
                 f"16-byte-aligned address with strides in multiples of 8, "
                 f"got offset {t.data_ptr() % 16} and strides {t.stride()}")
     return "tc"
@@ -164,7 +173,7 @@ def _route(kernel: str, **tensors) -> str:
 
 def fwd_route(q, k, v) -> str:
     """The forward kernel :func:`flash_attention` launches (see
-    :func:`_route`)."""
+    :func:`_route`): tensor cores for bf16 at head_dim 64 and 128."""
     return _route("flash_attention", q=q, k=k, v=v)
 
 
@@ -180,10 +189,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     return_lse: bool = False):
     """Flash-attention forward. On a CUDA tensor it launches the kernel
     :func:`fwd_route` picks (the tensor-core kernel for bf16 with head_dim
-    128, the SIMT kernel otherwise, both in ``csrc/flash_fwd.cu``), or
-    raises for what neither takes (dtype other than f32/bf16, head_dim
+    64 or 128, the SIMT kernel otherwise, both in ``csrc/flash_fwd.cu``),
+    or raises for what neither takes (dtype other than f32/bf16, head_dim
     outside :data:`HEAD_DIMS`, a head_dim stride other than 1, misaligned
-    bf16 with head_dim 128); on a CPU tensor it runs
+    bf16 with head_dim 64 or 128); on a CPU tensor it runs
     :func:`flash_attention_reference`. Returns O, or (O, LSE)."""
     _check_flash_inputs(q, k, v)
     if q.device.type == "cpu":
@@ -326,7 +335,8 @@ def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
 
 
 def dq_route(q, k, v, do) -> str:
-    """The dQ kernel :func:`flash_bwd_dq` launches (see :func:`_route`)."""
+    """The dQ kernel :func:`flash_bwd_dq` launches (see :func:`_route`):
+    tensor cores for bf16 at head_dim 128 only."""
     return _route("flash_bwd_dq", q=q, k=k, v=v, dO=do)
 
 
@@ -368,7 +378,7 @@ flash_bwd_dq.launches_tc = 0
 
 def dkv_route(q, k, v, do) -> str:
     """The dK/dV kernel :func:`flash_bwd_dkv` launches (see
-    :func:`_route`)."""
+    :func:`_route`): tensor cores for bf16 at head_dim 64 and 128."""
     return _route("flash_bwd_dkv", q=q, k=k, v=v, dO=do)
 
 
@@ -376,7 +386,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,
                   scale: Optional[float] = None):
     """(dK, dV) of flash attention, each GQA group summed. On a CUDA tensor
     it launches the dK/dV kernel that :func:`dkv_route` picks (the
-    tensor-core kernel for bf16 with head_dim 128, the SIMT kernel
+    tensor-core kernel for bf16 with head_dim 64 or 128, the SIMT kernel
     otherwise, both in ``csrc/flash_bwd.cu``) or raises for what neither
     takes; on a CPU tensor it runs :func:`flash_bwd_dkv_reference`."""
     if q.device.type == "cpu":

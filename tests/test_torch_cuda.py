@@ -15,7 +15,8 @@ from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import params_to_numpy
 from ray_tpu_torch.models.llama import LlamaConfig, init_params, lm_loss
-from ray_tpu_torch.ops import (attention, dq_route, flash_attention,
+from ray_tpu_torch.ops import (attention, dkv_route, dq_route,
+                               flash_attention,
                                flash_attention_reference, flash_bwd_dkv,
                                flash_bwd_dkv_reference, flash_bwd_dq,
                                flash_bwd_dq_reference, fwd_route,
@@ -390,11 +391,12 @@ def test_dkv_tensor_core_kernel_takes_autograds_do_at_b1_on_card(gen):
 
 
 def test_dkv_launches_tc_counts_only_the_tensor_core_kernel_on_card(gen):
-    """bf16 with head_dim 128 takes the tensor-core kernel; f32 and
-    head_dim 64 stay on the SIMT kernel."""
+    """bf16 with head_dim 128 or 64 takes the tensor-core kernel; f32
+    stays on the SIMT kernel."""
     cases = [((1, 64, 64, 4, 2, 128, True, torch.bfloat16), 1),
              ((1, 64, 64, 4, 2, 128, True, torch.float32), 0),
-             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 0)]
+             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 1),
+             ((1, 64, 64, 4, 2, 64, True, torch.float32), 0)]
     for shape, tc in cases:
         args = _bwd_args(gen, *shape)
         n0 = (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc)
@@ -495,20 +497,180 @@ def test_fwd_and_dq_tensor_core_kernels_are_deterministic_on_card(gen):
 
 def test_fwd_and_dq_launches_tc_count_only_the_tensor_core_kernels_on_card(
         gen):
-    """bf16 with head_dim 128 takes the tensor-core kernels; f32 and
-    head_dim 64 stay on the SIMT kernels."""
-    cases = [((1, 64, 64, 4, 2, 128, True, torch.bfloat16), 1),
-             ((1, 64, 64, 4, 2, 128, True, torch.float32), 0),
-             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 0)]
-    for shape, tc in cases:
+    """bf16 with head_dim 128 takes the tensor-core kernels; at head_dim
+    64 the forward does and dQ stays on SIMT; f32 stays on SIMT."""
+    cases = [((1, 64, 64, 4, 2, 128, True, torch.bfloat16), 1, 1),
+             ((1, 64, 64, 4, 2, 128, True, torch.float32), 0, 0),
+             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 1, 0)]
+    for shape, fwd_tc, dq_tc in cases:
         n0 = (flash_attention.launches, flash_attention.launches_tc)
         args = _bwd_args(gen, *shape)       # one forward launch
         assert (flash_attention.launches, flash_attention.launches_tc) == (
-            n0[0] + 1, n0[1] + tc)
+            n0[0] + 1, n0[1] + fwd_tc)
         n0 = (flash_bwd_dq.launches, flash_bwd_dq.launches_tc)
         flash_bwd_dq(*args)
         assert (flash_bwd_dq.launches, flash_bwd_dq.launches_tc) == (
-            n0[0] + 1, n0[1] + tc)
+            n0[0] + 1, n0[1] + dq_tc)
+
+
+# bf16 at head_dim 64: the tensor-core forward and dK/dV, SIMT dQ
+D64_CASES = [
+    # B, Sq, Skv, Hq, Hkv, causal, strided
+    (128, 197, 197, 12, 12, False, True),  # clip_b16_vision
+    (128, 77, 77, 8, 8, True, True),       # clip_b16_text
+    (2, 100, 100, 4, 2, True, False),      # ragged tiles, GQA
+    (1, 200, 200, 8, 4, True, False),      # ragged tiles, GQA
+    (1, 128, 384, 8, 2, True, False),      # Sq < Skv
+    (2, 96, 64, 4, 2, True, False),        # Sq > Skv: rows with no key
+    (2, 200, 200, 8, 8, False, False),     # non-causal
+]
+
+
+def _d64_qkv(gen, B, Sq, Skv, Hq, Hkv, strided, requires_grad=False):
+    """bf16 q, k, v with heads of 64; strided: views of one (B, S, 3, H,
+    64) projection, as CLIP's towers make them (Sq == Skv, Hq == Hkv).
+    Returns (q, k, v) and the leaves they are views of."""
+    bf = torch.bfloat16
+    if strided:
+        qkv = _randn(gen, (B, Sq, 3, Hq, 64), bf)
+        leaves = [qkv.requires_grad_(requires_grad)]
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        assert not q.is_contiguous()
+        return (q, k, v), leaves
+    leaves = [_randn(gen, (B, Sq, Hq, 64), bf).requires_grad_(requires_grad)]
+    leaves += [_randn(gen, (B, Skv, Hkv, 64), bf).requires_grad_(
+        requires_grad) for _ in range(2)]
+    return tuple(leaves), leaves
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal,strided", D64_CASES)
+def test_d64_tensor_core_forward_matches_plain_version_on_card(
+        gen, B, Sq, Skv, Hq, Hkv, causal, strided):
+    """bf16 with head_dim 64 takes the tensor-core forward: O within 2e-2,
+    LSE within 5e-3 of the plain version; a row that sees no key gives O
+    = 0 exactly and LSE -1e30; a relaunch gives the same bits."""
+    (q, k, v), _ = _d64_qkv(gen, B, Sq, Skv, Hq, Hkv, strided)
+    assert fwd_route(q, k, v) == "tc"
+    n0 = (flash_attention.launches, flash_attention.launches_tc)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert (flash_attention.launches, flash_attention.launches_tc) == (
+        n0[0] + 1, n0[1] + 1)
+    again = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=5e-3, rtol=5e-3)
+    if causal and Sq > Skv:
+        assert torch.equal(out[:, :Sq - Skv], torch.zeros_like(
+            out[:, :Sq - Skv]))
+        assert (lse[:, :, :Sq - Skv] == -1e30).all()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal,strided", D64_CASES)
+def test_d64_tensor_core_dkv_matches_plain_version_on_card(
+        gen, B, Sq, Skv, Hq, Hkv, causal, strided):
+    """bf16 with head_dim 64 takes the tensor-core dK/dV kernel, within the
+    reference's relative 2e-2 of the plain version, bit-equal on a
+    relaunch; its dQ stays on the SIMT kernel."""
+    (q, k, v), _ = _d64_qkv(gen, B, Sq, Skv, Hq, Hkv, strided)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = _randn(gen, o.shape, torch.bfloat16)
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, dvec)
+    assert dkv_route(*args[:4]) == "tc" and dq_route(*args[:4]) == "simt"
+    n0 = (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc,
+          flash_bwd_dq.launches, flash_bwd_dq.launches_tc)
+    got = flash_bwd_dkv(*args, causal=causal)
+    flash_bwd_dq(*args, causal=causal)
+    assert (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc,
+            flash_bwd_dq.launches, flash_bwd_dq.launches_tc) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3])
+    for a, b in zip(got, flash_bwd_dkv(*args, causal=causal)):
+        assert torch.equal(a, b)
+    want = flash_bwd_dkv_reference(*args, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err < 2e-2, err
+
+
+def test_flash_attention_autograd_at_clip_vision_shape_on_card(gen):
+    """attention() at clip_b16_vision (B=128, S=197, 12 heads of 64,
+    non-causal, q/k/v views of one projection): the tensor-core forward,
+    SIMT dQ from its LSE, tensor-core dK/dV; the projection's gradient
+    within 2e-2 (relative to its largest magnitude) of autograd through
+    naive_attention in f32 on the same values."""
+    (q, k, v), (qkv,) = _d64_qkv(gen, 128, 197, 197, 12, 12, True,
+                                 requires_grad=True)
+    do = _randn(gen, q.shape, torch.bfloat16)
+    n0 = (flash_attention.launches_tc, flash_bwd_dq.launches,
+          flash_bwd_dq.launches_tc, flash_bwd_dkv.launches_tc)
+    (got,) = torch.autograd.grad(attention(q, k, v, causal=False), qkv, do)
+    assert (flash_attention.launches_tc, flash_bwd_dq.launches,
+            flash_bwd_dq.launches_tc, flash_bwd_dkv.launches_tc) == (
+        n0[0] + 1, n0[1] + 1, n0[2], n0[3] + 1)
+    ref = qkv.detach().float().requires_grad_()
+    out = naive_attention(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2],
+                          causal=False)
+    (want,) = torch.autograd.grad(out, ref, do.float())
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    for i in range(3):      # dQ, dK, dV
+        g, w = got[:, :, i].float(), want[:, :, i]
+        err = (g - w).abs().max() / w.abs().max()
+        assert err < 2e-2, (i, err)
+
+
+def _probe_lib(tmp_path):
+    """tests/sm90_probe.cu built with the port's nvcc flags."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from ray_tpu_torch.ops import _kernels
+
+    so = tmp_path / "sm90_probe.so"
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I",
+                    str(_kernels.CSRC), "-o", str(so),
+                    str(Path(__file__).with_name("sm90_probe.cu"))],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sm90_probe.argtypes = [P, P, P, I, I, I, I, P]
+    lib.sm90_probe.restype = I
+    return lib
+
+
+@pytest.mark.parametrize("mode", ["ss", "rs_bt"])
+def test_sm90_head_dim_64_pieces_match_matmul_on_card(gen, tmp_path, mode):
+    """sm90.cuh's 64-column swizzled tile read by wgmma, against
+    torch.matmul on [64 x 64] bf16: K-major (m64n64k16_ss, the Q K^T form)
+    and MN-major with A from registers (m64n64k16_rs_bt, the P V form).
+    Controls that must fail: lbo and sbo swapped, and the tile written
+    unswizzled. An MN-major B of 64 columns is one panel: its lbo is not
+    read, so another lbo gives the same bits."""
+    lib = _probe_lib(tmp_path)
+    a = _randn(gen, (64, 64), torch.bfloat16)
+    b = _randn(gen, (64, 64), torch.bfloat16)
+    want = a.float() @ (b.float().T if mode == "ss" else b.float())
+
+    def run(lbo, sbo, swizzle):
+        d = torch.empty((64, 64), device="cuda")
+        err = lib.sm90_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                             int(mode == "rs_bt"), lbo, sbo, swizzle,
+                             torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        torch.cuda.synchronize()
+        return d
+
+    got = run(16, 1024, 1)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    assert not torch.allclose(run(1024, 16, 1), want, atol=1e-1)
+    assert not torch.allclose(run(16, 1024, 0), want, atol=1e-1)
+    if mode == "rs_bt":
+        assert torch.equal(run(8192, 1024, 1), got)
 
 
 def test_attention_grads_on_card_match_autograd_through_naive(gen):
@@ -817,25 +979,21 @@ def _vision_steps_card_vs_cpu(loss_fn, cfg, params, batch):
     """3 AdamW steps (eps 1e-4: no element's step hangs on the sign of a
     gradient that is cancellation noise) on the card and on the CPU from
     the same weights: losses and every param within 1e-5 abs + 1e-5 rel.
-    The card's f32 convolutions run without TF32, as its matmuls do."""
-    out, tf32 = {}, torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        for dev in ("cpu", "cuda"):
-            init_fn, step_fn, place_batch = make_train_step(
-                lambda p, b: loss_fn(p, b, cfg),
-                adamw(1e-3, eps=1e-4, weight_decay=0.0), device=dev)
-            state = init_fn(tree_map(lambda t: t.to(dev, copy=True),
-                                     params))
-            placed = place_batch(batch)
-            losses = []
-            for _ in range(3):
-                state, m = step_fn(state, placed)
-                losses.append(m["loss"].item())
-            out[dev] = losses, [t.detach().cpu()
-                                for t in tree_leaves(state.params)]
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+    Every TF32 flag stays at PyTorch's default: the port's f32
+    convolutions are f32 matmuls, which run in IEEE f32 by default."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init_fn, step_fn, place_batch = make_train_step(
+            lambda p, b: loss_fn(p, b, cfg),
+            adamw(1e-3, eps=1e-4, weight_decay=0.0), device=dev)
+        state = init_fn(tree_map(lambda t: t.to(dev, copy=True), params))
+        placed = place_batch(batch)
+        losses = []
+        for _ in range(3):
+            state, m = step_fn(state, placed)
+            losses.append(m["loss"].item())
+        out[dev] = losses, [t.detach().cpu()
+                            for t in tree_leaves(state.params)]
     (l0, p0), (l1, p1) = out["cpu"], out["cuda"]
     torch.testing.assert_close(torch.tensor(l1), torch.tensor(l0),
                                atol=1e-5, rtol=1e-5)

@@ -34,6 +34,7 @@ from ray_tpu_torch.ops import (FlashAttention, _kernels, apply_rotary,
                                paged_decode_attention_reference,
                                paged_decode_splits, rms_norm,
                                rope_frequencies)
+from ray_tpu_torch.ops.attention import TC_HEAD_DIMS
 from ray_tpu_torch.ops.paged_attention import MAX_PAGES_PER_SPLIT
 from ray_tpu_torch.ops import quant as tq
 
@@ -172,7 +173,18 @@ def test_flash_plain_matches_pallas_interpret(causal, hkv):
 
 
 def test_flash_plain_matches_pallas_interpret_bf16_sq_lt_skv():
-    q, k, v = _qkv(9, 1, 128, 256, 2, 1, 128)
+    _check_flash_bf16_sq_lt_skv(128)
+
+
+@pytest.mark.parametrize("d", [64])
+def test_flash_plain_matches_pallas_interpret_bf16_sq_lt_skv_head_dim(d):
+    """The same at CLIP's heads of 64 (the tensor-core forward's other
+    head dim)."""
+    _check_flash_bf16_sq_lt_skv(d)
+
+
+def _check_flash_bf16_sq_lt_skv(d):
+    q, k, v = _qkv(9, 1, 128, 256, 2, 1, d)
     jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
     out, lse = flash_attention_tpu(*jb, causal=True, block_q=128,
                                    block_k=128, interpret=True,
@@ -444,11 +456,16 @@ def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
         np.testing.assert_allclose(_np(g), w, **F32)
 
 
-@pytest.mark.parametrize("sq,skv", [(256, 256), (128, 256)])
-def test_flash_bwd_plain_matches_pallas_interpret_bf16(sq, skv):
+@pytest.mark.parametrize("sq,skv,d", [
+    pytest.param(256, 256, 128, id="256-256"),
+    pytest.param(128, 256, 128, id="128-256"),
+    pytest.param(256, 256, 64, id="256-256-d64"),    # CLIP's heads
+    pytest.param(128, 256, 64, id="128-256-d64"),
+])
+def test_flash_bwd_plain_matches_pallas_interpret_bf16(sq, skv, d):
     """bf16 at the reference's relative 2e-2, Sq < Skv included: P and
     dS are rounded to bf16 before their products on both sides."""
-    q, k, v = _qkv(12, 1, sq, skv, 4, 2, 128)
+    q, k, v = _qkv(12, 1, sq, skv, 4, 2, d)
     ins, want = _pallas_bwd(q, k, v, 13, True, jnp.bfloat16)
     t = [_t(a) for a in ins]
     t = [x.bfloat16() for x in t[:4]] + [t[4], t[5].bfloat16()]
@@ -529,25 +546,34 @@ def _view(shape, dtype, *, offset=0, width=None):
     return flat[offset:].view(b, s, h, width)[..., :d]
 
 
-ROUTE_CASES = [
-    (torch.bfloat16, 128, 0, None, "tc"),     # the training path
-    (torch.bfloat16, 128, 0, 136, "tc"),      # rows 272 bytes apart
-    (torch.float32, 128, 0, None, "simt"),
-    (torch.bfloat16, 64, 0, None, "simt"),
-    (torch.float32, 64, 1, None, "simt"),     # SIMT reads any alignment
-    (torch.bfloat16, 128, 1, None, None),     # base 2 bytes off: raises
-    (torch.bfloat16, 128, 0, 130, None),      # rows 260 bytes apart: raises
+# dtype, head_dim, base offset (elements), row width (head_dim when None),
+# then the route of the forward and dK/dV and that of dQ (None: raises):
+# bf16 at head_dim 64 takes the tensor cores in the forward and dK/dV and
+# stays on SIMT in dQ
+_ROUTES = [
+    (torch.bfloat16, 128, 0, None, "tc", "tc"),    # the training path
+    (torch.bfloat16, 128, 0, 136, "tc", "tc"),     # rows 272 bytes apart
+    (torch.float32, 128, 0, None, "simt", "simt"),
+    (torch.bfloat16, 64, 0, None, "tc", "simt"),   # CLIP's heads
+    (torch.float32, 64, 1, None, "simt", "simt"),  # SIMT reads any alignment
+    (torch.bfloat16, 128, 1, None, None, None),    # base 2 bytes off
+    (torch.bfloat16, 128, 0, 130, None, None),     # rows 260 bytes apart
+    (torch.bfloat16, 64, 0, 72, "tc", "simt"),     # rows 144 bytes apart
+    (torch.bfloat16, 64, 1, None, None, "simt"),   # base 2 bytes off
+    (torch.bfloat16, 64, 0, 66, None, "simt"),     # rows 132 bytes apart
 ]
+FWD_DKV_ROUTE_CASES = [c[:5] for c in _ROUTES]
+DQ_ROUTE_CASES = [c[:4] + c[5:] for c in _ROUTES]
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
+@pytest.mark.parametrize("dtype,d,offset,width,want", FWD_DKV_ROUTE_CASES)
 def test_dkv_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_bwd_dkv on a CUDA tensor, on CPU tensors."""
     q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
     k = torch.zeros((1, 8, 2, d), dtype=dtype)
     if want is None:
-        with pytest.raises(ValueError, match="16-byte"):
+        with pytest.raises(ValueError, match=f"head_dim {d} .*16-byte"):
             dkv_route(q, k, k, q)
         with pytest.raises(ValueError, match="16-byte"):
             dkv_route(k, q, k, k)
@@ -568,7 +594,7 @@ def test_dkv_route_ignores_the_stride_of_a_size_one_dimension():
         dkv_route(two, k, k, two)
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
+@pytest.mark.parametrize("dtype,d,offset,width,want", FWD_DKV_ROUTE_CASES)
 def test_fwd_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_attention on a CUDA tensor, on CPU tensors:
@@ -585,7 +611,7 @@ def test_fwd_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         assert fwd_route(k, q, q) == want
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
+@pytest.mark.parametrize("dtype,d,offset,width,want", DQ_ROUTE_CASES)
 def test_dq_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_bwd_dq on a CUDA tensor, on CPU tensors: a
@@ -619,21 +645,32 @@ def test_fwd_and_dq_routes_ignore_the_stride_of_a_size_one_dimension(route):
 
 
 def test_the_three_wrappers_share_one_route_rule():
-    """fwd_route, dq_route and dkv_route are one helper: the same answer,
-    or the same refusal, for every case, each naming its own wrapper."""
-    for dtype, d, offset, width, want in ROUTE_CASES:
+    """fwd_route, dq_route and dkv_route are one helper with one alignment
+    rule, and differ only in their tensor-core head dims: for every case
+    each wrapper takes the tensor cores where q is bf16 at one of its own
+    head dims and aligned, raises (naming itself, the head dim and q) where
+    it is such but misaligned, and takes SIMT everywhere else."""
+    assert TC_HEAD_DIMS == {"flash_attention": (64, 128),
+                            "flash_bwd_dq": (128,),
+                            "flash_bwd_dkv": (64, 128)}
+    for dtype, d, offset, width, want_fwd_dkv, want_dq in _ROUTES:
         q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
         k = torch.zeros((1, 8, 2, d), dtype=dtype)
-        answers = []
-        for name, route, args in (("flash_attention", fwd_route, (q, k, k)),
-                                  ("flash_bwd_dq", dq_route, (q, k, k, q)),
-                                  ("flash_bwd_dkv", dkv_route, (q, k, k, q))):
-            try:
-                answers.append(route(*args))
-            except ValueError as e:
-                assert str(e).startswith(f"{name}: bf16 head_dim 128 needs q")
-                answers.append(None)
-        assert answers == [want] * 3
+        aligned = offset == 0 and (width or d) % 8 == 0
+        for name, route, args, want in (
+                ("flash_attention", fwd_route, (q, k, k), want_fwd_dkv),
+                ("flash_bwd_dq", dq_route, (q, k, k, q), want_dq),
+                ("flash_bwd_dkv", dkv_route, (q, k, k, q), want_fwd_dkv)):
+            tc = dtype == torch.bfloat16 and d in TC_HEAD_DIMS[name]
+            rule = "simt" if not tc else "tc" if aligned else None
+            assert rule == want, (name, dtype, d, offset, width)
+            if rule is None:
+                with pytest.raises(ValueError) as e:
+                    route(*args)
+                assert str(e.value).startswith(
+                    f"{name}: bf16 head_dim {d} needs q")
+            else:
+                assert route(*args) == rule
 
 
 def test_kernel_library_name_follows_sources_headers_and_flags(
@@ -657,3 +694,25 @@ def test_kernel_library_name_follows_sources_headers_and_flags(
     assert _kernels._lib_path("flash_fwd") == edited["flash_fwd"]
     monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-G",))
     assert _kernels._lib_path("flash_fwd") != edited["flash_fwd"]
+
+
+def test_the_port_exports_every_op_of_the_reference():
+    """Every name in ray_tpu.ops.__all__ is in the port's, but two:
+    ``ring_attention``, the multi-device plane's sequence-parallel
+    attention, which is still to be ported (ROADMAP Queue 1), and
+    ``flash_attention_tpu``, the reference's Pallas kernel, whose
+    counterpart is ``flash_attention``. The quant ops come along."""
+    import ray_tpu.ops as jops
+    import ray_tpu_torch.ops as tops
+
+    not_ported = {"ring_attention": None,
+                  "flash_attention_tpu": "flash_attention"}
+    assert set(jops.__all__) - set(tops.__all__) == set(not_ported)
+    for name in tops.__all__:
+        assert hasattr(tops, name), name
+    for counterpart in filter(None, not_ported.values()):
+        assert counterpart in tops.__all__
+    from ray_tpu_torch.ops import quantize_params, weight_einsum
+
+    assert quantize_params is tq.quantize_params
+    assert weight_einsum is tq.weight_einsum

@@ -127,6 +127,46 @@ def test_forward_matches_jax(model, size):
     np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
+def test_f32_convolutions_never_reach_the_library_conv2d(model,
+                                                        monkeypatch):
+    """An f32 convolution is unfold + one f32 matmul (it follows the f32
+    matmul precision setting, IEEE at PyTorch's default, as the port's
+    other f32 matmuls do): with F.conv2d made to raise,
+    the forward and the gradients still match the reference, and a bf16
+    forward still reaches conv2d."""
+    import torch.nn.functional as F
+
+    def refuse(*a, **k):
+        raise AssertionError("an f32 convolution reached F.conv2d")
+
+    cfg, jcfg, jp = model
+    batch = _batch(2, cfg, size=15)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want = np.asarray(jvision.resnet_forward(
+        jp, jbatch["images"], jcfg))
+    loss, jgrads = jax.value_and_grad(jvision.image_loss)(
+        jax.tree.map(jnp.asarray, jp), jbatch, jcfg)
+    monkeypatch.setattr(F, "conv2d", refuse)
+    params = params_from_jax(jp, device="cpu")
+    np.testing.assert_allclose(resnet_forward(
+        params, torch.as_tensor(batch["images"]), cfg).numpy(), want, **F32)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    got = image_loss(params, {k: torch.as_tensor(v)
+                              for k, v in batch.items()}, cfg)
+    np.testing.assert_allclose(got.item(), float(loss), **F32)
+    got.backward()
+    for (path, w), t in zip(_leaves(jax.tree.map(np.asarray, jgrads)),
+                            leaves, strict=True):
+        np.testing.assert_allclose(t.grad.numpy(), w, err_msg=str(path),
+                                   **F32)
+    bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    with pytest.raises(AssertionError, match="reached F.conv2d"):
+        resnet_forward(params_from_jax(jp, device="cpu"),
+                       torch.as_tensor(batch["images"]), bf16)
+
+
 def test_image_loss_and_gradients_match_jax(model):
     cfg, jcfg, jp = model
     batch = _batch(1, cfg, size=15)
