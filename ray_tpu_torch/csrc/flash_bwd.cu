@@ -27,23 +27,29 @@
 //
 // Four kernels:
 //
-// flash_bwd_dq_tc_kernel: dQ for bf16 with D = 128 (the training path), on
-// the tensor cores (wgmma), the mirror of the dK/dV kernel below with the
-// q tile as M, and the same CTA and grid as flash_fwd_tc_kernel: two
-// warpgroups on 128 q rows of one (b, q head), each on its own 64 rows,
-// whose Q and dO tiles (128-byte-swizzled) and lse and Dvec (registers)
-// stay for the whole kernel; K and V stream through a cp.async double
-// buffer both share, the next kv tile loading while this one's products
-// run. Per kv tile: S = Q K^T and dP = dO V^T (m64n64k16, all operands
-// K-major from shared memory), P = exp2(S scale log2e - lse log2e) with
-// masked entries selected to exactly 0 (only on the tiles the diagonal or
-// the end of the keys cuts) while dP is still running, dS = P (dP - Dvec)
-// in f32, then dQ += dS K (m64n128k16) with dS rounded to bf16 as the A
-// operand in registers and K read MN-major from the same tile S read
-// K-major. dQ stays in 64 f32 registers per thread and is scaled and
-// rounded once: no atomics, no scratch, deterministic. Causal CTAs launch
-// heaviest q block first. Bound, like the forward, by how much of the
-// tensor cores' time two warpgroups keep busy between syncs.
+// flash_bwd_dq_tc_kernel<D>: dQ for bf16 with D = 64 or 128 (the training
+// paths, CLIP's towers), on the tensor cores (wgmma), the mirror of the
+// dK/dV kernel below with the q tile as M. A CTA is one (b, q head) and
+// WGS warpgroups on 64 q rows each (DqSmem: two at D = 128, as in
+// flash_fwd_tc_kernel; one at D = 64), whose Q and dO tiles
+// (128-byte-swizzled) and lse and Dvec (registers) stay for the whole
+// kernel; K and V stream through a cp.async double buffer the warpgroups
+// share, the next kv tile loading while this one's products run. D sets
+// the tiles (one 64-column swizzle panel a row at 64, two at 128), the
+// D / 16 k-steps of S and dP, the N of the dQ product, its D / 2
+// accumulator registers and the warpgroups a CTA. Per kv tile: S = Q
+// K^T and dP = dO V^T (m64n64k16, all operands K-major from shared
+// memory), P = exp2(S scale log2e - lse log2e) with masked entries
+// selected to exactly 0 (only on the tiles the diagonal or the end of the
+// keys cuts) while dP is still running, dS = P (dP - Dvec) in f32, then dQ
+// += dS K (m64nDk16) with dS rounded to bf16 as the A operand in registers
+// and K read MN-major from the same tile S read K-major. dQ stays in f32
+// registers and is scaled and rounded once: no atomics, no scratch,
+// deterministic. Causal CTAs launch heaviest q block first. At D = 128
+// bound, like the forward, by how much of the tensor cores' time two
+// warpgroups keep busy between syncs; at D = 64 (CLIP ViT-B/16: B = 128,
+// S = 197, 12 heads, 4 kv tiles a CTA) by the bytes, 196 MB against 23
+// GFLOP, and by how many loads the SM keeps in flight.
 //
 // flash_bwd_dkv_tc_kernel<D>: dK/dV for bf16 with D = 64 or 128 (the
 // training paths, CLIP's towers), on the tensor cores (wgmma), the variant
@@ -72,7 +78,7 @@
 // two warpgroups keep busy between syncs and softmax, not the bytes.
 //
 // flash_bwd_dkv_kernel and flash_bwd_dq_kernel (f32 with D = 16, 32, 64
-// or 128; bf16 with D = 16 or 32, and dQ's also at 64): the first
+// or 128; bf16 with D = 16 or 32): the first
 // version, like flash_fwd.cu's SIMT kernel, with f32 FMAs out of shared
 // memory (no wgmma, no TMA), bound by the f32 FMA rate and shared-memory
 // bandwidth, far from the tensor-core bound; f32 is held at 1e-4.
@@ -642,27 +648,45 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
   }
 }
 
-// --- dQ on tensor cores: bf16, head_dim 128 --------------------------------
+// --- dQ on tensor cores: bf16, head_dim 64 or 128 -------------------------
 
-// shared memory: each warpgroup's Q and dO tiles, then two stages each of
-// K and V, every tile 64 rows of 128 columns
-constexpr int DQ_D = 128;
-constexpr int DQ_TILE = 64 * DQ_D * 2;
-constexpr int DQ_OFF_Q = 0;
-constexpr int DQ_OFF_DO = DQ_OFF_Q + NWG * DQ_TILE;
-constexpr int DQ_OFF_K = DQ_OFF_DO + NWG * DQ_TILE;
-constexpr int DQ_OFF_V = DQ_OFF_K + 2 * DQ_TILE;
-constexpr int DQ_SMEM_BYTES = DQ_OFF_V + 2 * DQ_TILE + 1024;  // + slack
-constexpr int DQ_BQ = BR * NWG;   // q rows per CTA
+// Shared memory of the dQ kernel, byte offsets from a 1024-byte-aligned
+// base: each warpgroup's Q and dO tiles, then two stages each of K and V;
+// every tile 64 rows of D columns (one 64-column panel at D = 64, two at
+// 128). WGS warpgroups, each on its own 64 q rows, make a CTA: two at D =
+// 128, where 128 q rows share each K and V tile of a kernel bound by the
+// tensor cores; one at D = 64, bound by the bytes. There a thread takes
+// 151 registers, so three one-warpgroup CTAs share an SM where one
+// two-warpgroup CTA fits, and one CTA's loads overlap the others'
+// products: 0.148 against 0.185 ms at CLIP's vision shape (PERF.md;
+// __launch_bounds__(256, 2) on two warpgroups spills).
+template <int D>
+struct DqSmem {
+  static constexpr int WGS = D == 64 ? 1 : NWG;
+  static constexpr int TILE = 64 * D * 2;
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_DO = OFF_Q + WGS * TILE;
+  static constexpr int OFF_K = OFF_DO + WGS * TILE;
+  static constexpr int OFF_V = OFF_K + 2 * TILE;
+  static constexpr int BYTES = OFF_V + 2 * TILE + 1024;  // + slack
+};
 
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
+template <int D>
+__global__ void __launch_bounds__(128 * DqSmem<D>::WGS, 1)
+flash_bwd_dq_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq, int Sq,
     int Skv, int Hq, int Hkv, Strides st, float scale, int causal) {
   using namespace sm90;
-  constexpr int D = DQ_D;
+  static_assert(D == 64 || D == 128, "one or two 64-column panels");
+  using S = DqSmem<D>;
+  constexpr int NTH = 128 * S::WGS;   // threads a CTA
+  constexpr int BQ_CTA = BR * S::WGS;  // q rows a CTA
+  // the lbo of K read MN-major: its panel stride at D = 128; one panel at
+  // D = 64, where no product reads it (sm90.cuh)
+  constexpr uint32_t lbo = D == 128 ? PANEL : 16;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
 
@@ -672,8 +696,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
   const int hk = h / (Hq / Hkv);
   const int q_off = Skv - Sq;
   // heaviest causal q block first: block x takes q block n_qb - 1 - x
-  const int n_qb = (Sq + DQ_BQ - 1) / DQ_BQ;
-  const int q0 = (n_qb - 1 - (int)blockIdx.x) * DQ_BQ;
+  const int n_qb = (Sq + BQ_CTA - 1) / BQ_CTA;
+  const int q0 = (n_qb - 1 - (int)blockIdx.x) * BQ_CTA;
   const int qw = q0 + BR * wg;   // this warpgroup's first q row
   // this thread's accumulator rows qw + row0 + 8i and columns
   // 8j + col0 + {0, 1} (keys in S and dP, head_dim in dQ)
@@ -683,7 +707,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
 
   int n_tiles = (Skv + BK - 1) / BK;
   if (causal) {
-    const int last_key = min(q0 + DQ_BQ, Sq) - 1 + q_off;
+    const int last_key = min(q0 + BQ_CTA, Sq) - 1 + q_off;
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BK + 1);
   }
   const int wg_rows = max(min(BR, Sq - qw), 0);
@@ -693,15 +717,15 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
 
   const __nv_bfloat16* kb = k + b * st.k_b + hk * st.k_h;
   const __nv_bfloat16* vb = v + b * st.v_b + hk * st.v_h;
-  const uint32_t qs = base + DQ_OFF_Q + wg * DQ_TILE;
-  const uint32_t dos = base + DQ_OFF_DO + wg * DQ_TILE;
+  const uint32_t qs = base + S::OFF_Q + wg * S::TILE;
+  const uint32_t dos = base + S::OFF_DO + wg * S::TILE;
   if (n_tiles > 0) {
-    load_tile_sw128<BR, 128>(qs, q + b * st.q_b + h * st.q_h, qw, Sq,
-                             st.q_s, wt);
-    load_tile_sw128<BR, 128>(dos, dout + b * st.o_b + h * st.o_h, qw, Sq,
-                             st.o_s, wt);
-    load_tile_sw128<BK, NT>(base + DQ_OFF_K, kb, 0, Skv, st.k_s, tid);
-    load_tile_sw128<BK, NT>(base + DQ_OFF_V, vb, 0, Skv, st.v_s, tid);
+    load_tile_sw128<BR, 128, D>(qs, q + b * st.q_b + h * st.q_h, qw, Sq,
+                                st.q_s, wt);
+    load_tile_sw128<BR, 128, D>(dos, dout + b * st.o_b + h * st.o_h, qw, Sq,
+                                st.o_s, wt);
+    load_tile_sw128<BK, NTH, D>(base + S::OFF_K, kb, 0, Skv, st.k_s, tid);
+    load_tile_sw128<BK, NTH, D>(base + S::OFF_V, vb, 0, Skv, st.v_s, tid);
   }
   cp_async_commit();
   // this thread's two rows' lse (log2 units) and Dvec, kept in registers
@@ -714,9 +738,9 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     dvc[i] = in ? dvec[(long long)bh * Sq + qr] : 0.f;
   }
 
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int stage = t & 1;
@@ -724,20 +748,21 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     fence_proxy_async();
     __syncthreads();  // tile t is in; every thread is done with tile t - 1
     if (t + 1 < n_tiles) {
-      const uint32_t nxt = (stage ^ 1) * DQ_TILE;
-      load_tile_sw128<BK, NT>(base + DQ_OFF_K + nxt, kb, (t + 1) * BK, Skv,
-                              st.k_s, tid);
-      load_tile_sw128<BK, NT>(base + DQ_OFF_V + nxt, vb, (t + 1) * BK, Skv,
-                              st.v_s, tid);
+      const uint32_t nxt = (stage ^ 1) * S::TILE;
+      load_tile_sw128<BK, NTH, D>(base + S::OFF_K + nxt, kb, (t + 1) * BK,
+                                  Skv, st.k_s, tid);
+      load_tile_sw128<BK, NTH, D>(base + S::OFF_V + nxt, vb, (t + 1) * BK,
+                                  Skv, st.v_s, tid);
     }
     cp_async_commit();
     const int k0 = t * BK;
     if (k0 > wg_last) continue;  // wholly above this warpgroup's diagonal
-    const uint32_t kts = base + DQ_OFF_K + stage * DQ_TILE;
-    const uint32_t vts = base + DQ_OFF_V + stage * DQ_TILE;
+    const uint32_t kts = base + S::OFF_K + stage * S::TILE;
+    const uint32_t vts = base + S::OFF_V + stage * S::TILE;
 
-    // S = Q K^T and dP = dO V^T [BR x BK], head_dim in 8 k16 steps, all
-    // operands K-major
+    // S = Q K^T and dP = dO V^T [BR x BK], head_dim in D / 16 k16 steps,
+    // all operands K-major (the step moves 32 bytes inside a 64-column
+    // panel)
     float s[BK / 2], dp[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
@@ -792,15 +817,15 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
           const int x = 4 * j + 2 * i + c;
           dp[x] = s[x] * (dp[x] - dvc[i]);
         }
-    // dQ += dS K: dS rounded to bf16 (k's dtype) in registers, K read
-    // MN-major from the tile S read K-major, its kv rows the reduction
+    // dQ += dS K (m64nDk16): dS rounded to bf16 (k's dtype) in registers,
+    // K read MN-major from the tile S read K-major, its kv rows the
+    // reduction
     uint32_t da[BK / 16][4];
     to_a_operand(dp, da);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n128k16_rs_bt(
-          acc, da[kk], desc_sw128(kts + kk * 16 * 128, PANEL, 1024));
+      wgmma_rs_bt(acc, da[kk], desc_sw128(kts + kk * 16 * 128, lbo, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(da);
@@ -884,16 +909,19 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* dvec, void* dq, int B, int Sq, int Skv,
                          int Hq, int Hkv, const long long* st, float scale,
                          int causal, cudaStream_t stream) {
-  constexpr auto kern = tc::flash_bwd_dq_tc_kernel;
-  cudaError_t err = sm90::smem_limit_once<kern>(tc::DQ_SMEM_BYTES);
+  using S = tc::DqSmem<D>;
+  constexpr auto kern = tc::flash_bwd_dq_tc_kernel<D>;
+  cudaError_t err = sm90::smem_limit_once<kern>(S::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + tc::DQ_BQ - 1) / tc::DQ_BQ, B * Hq);
-  kern<<<grid, tc::NT, tc::DQ_SMEM_BYTES, stream>>>(
+  constexpr int rows = tc::BR * S::WGS;   // q rows a CTA
+  dim3 grid((Sq + rows - 1) / rows, B * Hq);
+  kern<<<grid, 128 * S::WGS, S::BYTES, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, dvec,
       (__nv_bfloat16*)dq, Sq, Skv, Hq, Hkv, read_strides(st), scale, causal);
@@ -938,26 +966,31 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1) switch (D) {
     case 16: DQ(__nv_bfloat16, 16);
     case 32: DQ(__nv_bfloat16, 32);
-    case 64: DQ(__nv_bfloat16, 64);
   }
 #undef DQ
-  return (int)cudaErrorInvalidValue;  // bf16 with D = 128: flash_bwd_dq_tc
+  // bf16 with D = 64, 128: flash_bwd_dq_tc
+  return (int)cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dq, on the tensor cores: bf16 (dtype 1) with D = 128 only,
-// q, k, v and dO at 16-byte-aligned addresses with (batch, seq, head)
-// strides in multiples of 8 elements; anything else returns an error.
+// As flash_bwd_dq, on the tensor cores: bf16 (dtype 1) with D = 64 or
+// 128 only, q, k, v and dO at 16-byte-aligned addresses with (batch, seq,
+// head) strides in multiples of 8 elements; anything else returns an
+// error.
 extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* dvec, void* dq, int B, int Sq,
                                int Skv, int Hq, int Hkv, int D,
                                const long long* strides, float scale,
                                int causal, int dtype, void* stream) {
-  if (dtype != 1 || D != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   if (int err = check_tc_alignment(q, k, v, dout, strides)) return err;
-  return launch_dq_tc(q, k, v, dout, (const float*)lse, (const float*)dvec,
-                      dq, B, Sq, Skv, Hq, Hkv, strides, scale, causal,
-                      (cudaStream_t)stream);
+  const float* l = (const float*)lse;
+  const float* dvc = (const float*)dvec;
+  if (D == 64)
+    return launch_dq_tc<64>(q, k, v, dout, l, dvc, dq, B, Sq, Skv, Hq, Hkv,
+                            strides, scale, causal, (cudaStream_t)stream);
+  return launch_dq_tc<128>(q, k, v, dout, l, dvc, dq, B, Sq, Skv, Hq, Hkv,
+                           strides, scale, causal, (cudaStream_t)stream);
 }
 
 // As flash_bwd_dq; dK and dV are written [B, Skv, Hkv, D] contiguous, each

@@ -11,8 +11,8 @@ leaf for leaf (models/convert.py).
 
 Attention is the port's ``ops.attention.attention``: exact softmax
 attention, through the flash kernels on the card (forward, dQ and dK/dV;
-head_dim 64 at ``vit_b16``, the SIMT route) and their plain versions on
-the CPU. The reference calls ``blockwise_attention`` (XLA, f32
+head_dim 64 at ``vit_b16``, all three on the tensor cores) and their plain
+versions on the CPU. The reference calls ``blockwise_attention`` (XLA, f32
 probabilities); in f32 the two agree to rounding, in bf16 the kernel
 rounds P to bf16 before PV, as the reference's own Pallas kernel does.
 GELU is the tanh approximation, ``jax.nn.gelu``'s default. The towers run

@@ -2,9 +2,8 @@
 whose forward (``csrc/flash_fwd.cu``) and two backward kernels
 (``csrc/flash_bwd.cu``, dQ and dK/dV) launch on CUDA tensors, while CPU
 tensors run their plain versions. Each of the three has a tensor-core
-kernel for bf16 at its tensor-core head dims (the forward and dK/dV at 64
-and 128, dQ at 128) and a SIMT kernel for the rest (f32, and the other
-head dims of 16, 32 and 64); :func:`_route` picks one. The head dims the
+kernel for bf16 at head dims 64 and 128 and a SIMT kernel for the rest
+(f32, and bf16 at head dims 16 and 32); :func:`_route` picks one. The head dims the
 kernels take are :data:`HEAD_DIMS`; any other raises on the card.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Layouts: q [B, Sq, Hq, D];
@@ -143,7 +142,7 @@ def _steps(t):
 # the head dims at which each wrapper's bf16 inputs take its tensor-core
 # kernel (csrc/flash_fwd.cu flash_fwd_tc, csrc/flash_bwd.cu
 # flash_bwd_dq_tc and flash_bwd_dkv_tc)
-TC_HEAD_DIMS = {"flash_attention": (64, 128), "flash_bwd_dq": (128,),
+TC_HEAD_DIMS = {"flash_attention": (64, 128), "flash_bwd_dq": (64, 128),
                 "flash_bwd_dkv": (64, 128)}
 
 
@@ -336,7 +335,7 @@ def _bwd_launch_args(q, k, v, do, lse, dvec, scale):
 
 def dq_route(q, k, v, do) -> str:
     """The dQ kernel :func:`flash_bwd_dq` launches (see :func:`_route`):
-    tensor cores for bf16 at head_dim 128 only."""
+    tensor cores for bf16 at head_dim 64 and 128."""
     return _route("flash_bwd_dq", q=q, k=k, v=v, dO=do)
 
 
@@ -344,9 +343,10 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
                  scale: Optional[float] = None):
     """dQ of flash attention. On a CUDA tensor it launches the dQ kernel
     that :func:`dq_route` picks (the tensor-core kernel for bf16 with
-    head_dim 128, the SIMT kernel otherwise, both in
-    ``csrc/flash_bwd.cu``) or raises for what neither takes; on a CPU
-    tensor it runs :func:`flash_bwd_dq_reference`."""
+    head_dim 64 or 128, the SIMT kernel otherwise, both in
+    ``csrc/flash_bwd.cu``) or raises for what neither takes (misaligned
+    bf16 at head_dim 64 or 128 included); on a CPU tensor it runs
+    :func:`flash_bwd_dq_reference`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, dvec, causal=causal,
                                       scale=scale)

@@ -497,11 +497,12 @@ def test_fwd_and_dq_tensor_core_kernels_are_deterministic_on_card(gen):
 
 def test_fwd_and_dq_launches_tc_count_only_the_tensor_core_kernels_on_card(
         gen):
-    """bf16 with head_dim 128 takes the tensor-core kernels; at head_dim
-    64 the forward does and dQ stays on SIMT; f32 stays on SIMT."""
+    """bf16 with head_dim 128 or 64 takes the tensor-core kernels; f32
+    stays on SIMT."""
     cases = [((1, 64, 64, 4, 2, 128, True, torch.bfloat16), 1, 1),
              ((1, 64, 64, 4, 2, 128, True, torch.float32), 0, 0),
-             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 1, 0)]
+             ((1, 64, 64, 4, 2, 64, True, torch.bfloat16), 1, 1),
+             ((1, 64, 64, 4, 2, 64, True, torch.float32), 0, 0)]
     for shape, fwd_tc, dq_tc in cases:
         n0 = (flash_attention.launches, flash_attention.launches_tc)
         args = _bwd_args(gen, *shape)       # one forward launch
@@ -513,7 +514,7 @@ def test_fwd_and_dq_launches_tc_count_only_the_tensor_core_kernels_on_card(
             n0[0] + 1, n0[1] + dq_tc)
 
 
-# bf16 at head_dim 64: the tensor-core forward and dK/dV, SIMT dQ
+# bf16 at head_dim 64: the tensor-core forward, dQ and dK/dV
 D64_CASES = [
     # B, Sq, Skv, Hq, Hkv, causal, strided
     (128, 197, 197, 12, 12, False, True),  # clip_b16_vision
@@ -568,25 +569,51 @@ def test_d64_tensor_core_forward_matches_plain_version_on_card(
         assert (lse[:, :, :Sq - Skv] == -1e30).all()
 
 
+def _d64_bwd_args(gen, B, Sq, Skv, Hq, Hkv, causal, strided):
+    """q, k, v (see _d64_qkv), O and the LSE from the forward kernel, a
+    random dO and D = rowsum(dO * O): the backward kernels' arguments."""
+    (q, k, v), _ = _d64_qkv(gen, B, Sq, Skv, Hq, Hkv, strided)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = _randn(gen, o.shape, torch.bfloat16)
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, dvec
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal,strided", D64_CASES)
+def test_d64_tensor_core_dq_matches_plain_version_on_card(
+        gen, B, Sq, Skv, Hq, Hkv, causal, strided):
+    """bf16 with head_dim 64 takes the tensor-core dQ kernel, within the
+    reference's relative 2e-2 of the plain version, bit-equal on a
+    relaunch; a row that sees no key gets dQ = 0 exactly."""
+    args = _d64_bwd_args(gen, B, Sq, Skv, Hq, Hkv, causal, strided)
+    assert dq_route(*args[:4]) == "tc"
+    n0 = (flash_bwd_dq.launches, flash_bwd_dq.launches_tc)
+    got = flash_bwd_dq(*args, causal=causal)
+    assert (flash_bwd_dq.launches, flash_bwd_dq.launches_tc) == (
+        n0[0] + 1, n0[1] + 1)
+    assert torch.equal(got, flash_bwd_dq(*args, causal=causal))
+    want = flash_bwd_dq_reference(*args, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err < 2e-2, err
+    if causal and Sq > Skv:
+        assert torch.equal(got[:, :Sq - Skv],
+                           torch.zeros_like(got[:, :Sq - Skv]))
+
+
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal,strided", D64_CASES)
 def test_d64_tensor_core_dkv_matches_plain_version_on_card(
         gen, B, Sq, Skv, Hq, Hkv, causal, strided):
     """bf16 with head_dim 64 takes the tensor-core dK/dV kernel, within the
     reference's relative 2e-2 of the plain version, bit-equal on a
-    relaunch; its dQ stays on the SIMT kernel."""
-    (q, k, v), _ = _d64_qkv(gen, B, Sq, Skv, Hq, Hkv, strided)
-    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-    do = _randn(gen, o.shape, torch.bfloat16)
-    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, do, lse, dvec)
-    assert dkv_route(*args[:4]) == "tc" and dq_route(*args[:4]) == "simt"
-    n0 = (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc,
-          flash_bwd_dq.launches, flash_bwd_dq.launches_tc)
+    relaunch."""
+    args = _d64_bwd_args(gen, B, Sq, Skv, Hq, Hkv, causal, strided)
+    assert dkv_route(*args[:4]) == "tc"
+    n0 = (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc)
     got = flash_bwd_dkv(*args, causal=causal)
-    flash_bwd_dq(*args, causal=causal)
-    assert (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc,
-            flash_bwd_dq.launches, flash_bwd_dq.launches_tc) == (
-        n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3])
+    assert (flash_bwd_dkv.launches, flash_bwd_dkv.launches_tc) == (
+        n0[0] + 1, n0[1] + 1)
     for a, b in zip(got, flash_bwd_dkv(*args, causal=causal)):
         assert torch.equal(a, b)
     want = flash_bwd_dkv_reference(*args, causal=causal)
@@ -600,7 +627,8 @@ def test_d64_tensor_core_dkv_matches_plain_version_on_card(
 def test_flash_attention_autograd_at_clip_vision_shape_on_card(gen):
     """attention() at clip_b16_vision (B=128, S=197, 12 heads of 64,
     non-causal, q/k/v views of one projection): the tensor-core forward,
-    SIMT dQ from its LSE, tensor-core dK/dV; the projection's gradient
+    and dQ and dK/dV from its LSE on the tensor cores; the projection's
+    gradient
     within 2e-2 (relative to its largest magnitude) of autograd through
     naive_attention in f32 on the same values."""
     (q, k, v), (qkv,) = _d64_qkv(gen, 128, 197, 197, 12, 12, True,
@@ -611,7 +639,7 @@ def test_flash_attention_autograd_at_clip_vision_shape_on_card(gen):
     (got,) = torch.autograd.grad(attention(q, k, v, causal=False), qkv, do)
     assert (flash_attention.launches_tc, flash_bwd_dq.launches,
             flash_bwd_dq.launches_tc, flash_bwd_dkv.launches_tc) == (
-        n0[0] + 1, n0[1] + 1, n0[2], n0[3] + 1)
+        n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1)
     ref = qkv.detach().float().requires_grad_()
     out = naive_attention(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2],
                           causal=False)

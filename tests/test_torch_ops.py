@@ -456,20 +456,23 @@ def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
         np.testing.assert_allclose(_np(g), w, **F32)
 
 
-@pytest.mark.parametrize("sq,skv,d", [
-    pytest.param(256, 256, 128, id="256-256"),
-    pytest.param(128, 256, 128, id="128-256"),
-    pytest.param(256, 256, 64, id="256-256-d64"),    # CLIP's heads
-    pytest.param(128, 256, 64, id="128-256-d64"),
+@pytest.mark.parametrize("sq,skv,d,causal", [
+    pytest.param(256, 256, 128, True, id="256-256"),
+    pytest.param(128, 256, 128, True, id="128-256"),
+    pytest.param(256, 256, 64, True, id="256-256-d64"),    # CLIP's heads
+    pytest.param(128, 256, 64, True, id="128-256-d64"),
+    # CLIP's vision attention is non-causal (S=197 is no block multiple
+    # for the interpreted kernel: 256 stands in)
+    pytest.param(256, 256, 64, False, id="256-256-d64-non-causal"),
 ])
-def test_flash_bwd_plain_matches_pallas_interpret_bf16(sq, skv, d):
+def test_flash_bwd_plain_matches_pallas_interpret_bf16(sq, skv, d, causal):
     """bf16 at the reference's relative 2e-2, Sq < Skv included: P and
     dS are rounded to bf16 before their products on both sides."""
     q, k, v = _qkv(12, 1, sq, skv, 4, 2, d)
-    ins, want = _pallas_bwd(q, k, v, 13, True, jnp.bfloat16)
+    ins, want = _pallas_bwd(q, k, v, 13, causal, jnp.bfloat16)
     t = [_t(a) for a in ins]
     t = [x.bfloat16() for x in t[:4]] + [t[4], t[5].bfloat16()]
-    got = flash_attention_bwd(*t, causal=True)
+    got = flash_attention_bwd(*t, causal=causal)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert _rel_err(_np(g), w) < 2e-2
@@ -485,6 +488,7 @@ def _leaf_qkv(seed, b, sq, skv, hq, hkv, d):
     (37, 90, True),          # Sq < Skv
     (96, 64, True),          # Sq > Skv: the first rows see no key
     (50, 70, False),
+    (197, 197, False),       # CLIP ViT-B/16's vision attention, 4 heads
 ])
 def test_attention_grads_match_autograd_through_naive(sq, skv, causal):
     """attention() is differentiable through FlashAttention: its
@@ -547,26 +551,23 @@ def _view(shape, dtype, *, offset=0, width=None):
 
 
 # dtype, head_dim, base offset (elements), row width (head_dim when None),
-# then the route of the forward and dK/dV and that of dQ (None: raises):
-# bf16 at head_dim 64 takes the tensor cores in the forward and dK/dV and
-# stays on SIMT in dQ
-_ROUTES = [
-    (torch.bfloat16, 128, 0, None, "tc", "tc"),    # the training path
-    (torch.bfloat16, 128, 0, 136, "tc", "tc"),     # rows 272 bytes apart
-    (torch.float32, 128, 0, None, "simt", "simt"),
-    (torch.bfloat16, 64, 0, None, "tc", "simt"),   # CLIP's heads
-    (torch.float32, 64, 1, None, "simt", "simt"),  # SIMT reads any alignment
-    (torch.bfloat16, 128, 1, None, None, None),    # base 2 bytes off
-    (torch.bfloat16, 128, 0, 130, None, None),     # rows 260 bytes apart
-    (torch.bfloat16, 64, 0, 72, "tc", "simt"),     # rows 144 bytes apart
-    (torch.bfloat16, 64, 1, None, None, "simt"),   # base 2 bytes off
-    (torch.bfloat16, 64, 0, 66, None, "simt"),     # rows 132 bytes apart
+# then the route of all three wrappers (None: raises): bf16 at head_dim 64
+# and 128 takes the tensor cores, or raises where misaligned
+ROUTE_CASES = [
+    (torch.bfloat16, 128, 0, None, "tc"),    # the training path
+    (torch.bfloat16, 128, 0, 136, "tc"),     # rows 272 bytes apart
+    (torch.float32, 128, 0, None, "simt"),
+    (torch.bfloat16, 64, 0, None, "tc"),     # CLIP's heads
+    (torch.float32, 64, 1, None, "simt"),    # SIMT reads any alignment
+    (torch.bfloat16, 128, 1, None, None),    # base 2 bytes off
+    (torch.bfloat16, 128, 0, 130, None),     # rows 260 bytes apart
+    (torch.bfloat16, 64, 0, 72, "tc"),       # rows 144 bytes apart
+    (torch.bfloat16, 64, 1, None, None),     # base 2 bytes off
+    (torch.bfloat16, 64, 0, 66, None),       # rows 132 bytes apart
 ]
-FWD_DKV_ROUTE_CASES = [c[:5] for c in _ROUTES]
-DQ_ROUTE_CASES = [c[:4] + c[5:] for c in _ROUTES]
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", FWD_DKV_ROUTE_CASES)
+@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
 def test_dkv_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_bwd_dkv on a CUDA tensor, on CPU tensors."""
@@ -594,7 +595,7 @@ def test_dkv_route_ignores_the_stride_of_a_size_one_dimension():
         dkv_route(two, k, k, two)
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", FWD_DKV_ROUTE_CASES)
+@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
 def test_fwd_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_attention on a CUDA tensor, on CPU tensors:
@@ -611,7 +612,7 @@ def test_fwd_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         assert fwd_route(k, q, q) == want
 
 
-@pytest.mark.parametrize("dtype,d,offset,width,want", DQ_ROUTE_CASES)
+@pytest.mark.parametrize("dtype,d,offset,width,want", ROUTE_CASES)
 def test_dq_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
         dtype, d, offset, width, want):
     """The rule behind flash_bwd_dq on a CUDA tensor, on CPU tensors: a
@@ -619,7 +620,8 @@ def test_dq_route_picks_the_kernel_by_dtype_head_dim_and_alignment(
     q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
     k = torch.zeros((1, 8, 2, d), dtype=dtype)
     if want is None:
-        with pytest.raises(ValueError, match="flash_bwd_dq: .*16-byte"):
+        with pytest.raises(ValueError,
+                           match=f"flash_bwd_dq: bf16 head_dim {d} .*16-byte"):
             dq_route(q, k, k, q)
         with pytest.raises(ValueError, match="needs dO at a 16-byte"):
             dq_route(k, k, k, q)
@@ -651,16 +653,16 @@ def test_the_three_wrappers_share_one_route_rule():
     head dims and aligned, raises (naming itself, the head dim and q) where
     it is such but misaligned, and takes SIMT everywhere else."""
     assert TC_HEAD_DIMS == {"flash_attention": (64, 128),
-                            "flash_bwd_dq": (128,),
+                            "flash_bwd_dq": (64, 128),
                             "flash_bwd_dkv": (64, 128)}
-    for dtype, d, offset, width, want_fwd_dkv, want_dq in _ROUTES:
+    for dtype, d, offset, width, want in ROUTE_CASES:
         q = _view((1, 8, 4, d), dtype, offset=offset, width=width)
         k = torch.zeros((1, 8, 2, d), dtype=dtype)
         aligned = offset == 0 and (width or d) % 8 == 0
-        for name, route, args, want in (
-                ("flash_attention", fwd_route, (q, k, k), want_fwd_dkv),
-                ("flash_bwd_dq", dq_route, (q, k, k, q), want_dq),
-                ("flash_bwd_dkv", dkv_route, (q, k, k, q), want_fwd_dkv)):
+        for name, route, args in (
+                ("flash_attention", fwd_route, (q, k, k)),
+                ("flash_bwd_dq", dq_route, (q, k, k, q)),
+                ("flash_bwd_dkv", dkv_route, (q, k, k, q))):
             tc = dtype == torch.bfloat16 and d in TC_HEAD_DIMS[name]
             rule = "simt" if not tc else "tc" if aligned else None
             assert rule == want, (name, dtype, d, offset, width)
