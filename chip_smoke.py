@@ -52,6 +52,17 @@ Phases, one JSON line each on stdout:
                busy share.
      resnet  - ResNet-18 (bf16) at 32x32, 10 classes, trained 1+3 steps at
                B=256: the loss falls (no kernel of the port runs).
+     data    - the data-to-card path: 32 host batches at ResNet-18's and
+               CLIP ViT-B/16's shapes through place_batch and
+               iter_device_batches (GB/s, bit-equal); both models trained
+               over 8 batches fed each way (step ms, the busy share of a
+               window traced with util.tracing.profile and span);
+               collect_hbm_stats against torch.cuda's counters.
+     channel - a spawned reader on the same card takes the 8B KV export
+               of a 511-token request (67.0 MB, bf16) and a 1 GiB tensor
+               8 times each over DeviceChannel (CUDA IPC) and over the
+               Channel's tensor lane (shm): bit-equal, GB/s, the IPC lane
+               against the bound of its device copies.
      grpo    - GRPO RLHF: the default `tiny` config raises its reward on
                the token-7 objective in 13 iterations; Llama 1b (full
                width and depth, bf16, seed 7) 3 iterations of G=8 over 4
@@ -1710,6 +1721,404 @@ def phase_resnet(torch, card):
         1e-4, tc=False)
 
 
+# --- the data-to-card path and the channels --------------------------------
+
+DATA_BATCHES, DATA_STEPS = 32, 8
+
+
+def _union_us(spans):
+    """Microseconds covered by the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _host_batches(torch, shapes, n, seed):
+    """``n`` distinct seeded batches of float32 images and int32 columns
+    (``shapes``: name -> (shape, high) with high None for images), made on
+    the card in bulk and copied to host numpy arrays once."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    cols = {}
+    for k, (shape, high) in shapes.items():
+        t = (torch.rand((n, *shape), generator=g, device="cuda")
+             if high is None else
+             torch.randint(0, high, (n, *shape), generator=g, device="cuda",
+                           dtype=torch.int32))
+        cols[k] = t.cpu().numpy()
+        del t
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _feed_pass(torch, feed, batches):
+    """All ``batches`` onto the card through ``feed`` (a list of dicts in,
+    an iterator of placed dicts out); the placed batches and host GB/s."""
+    nbytes = sum(v.nbytes for b in batches for v in b.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(feed(batches))
+    torch.cuda.synchronize()
+    return out, nbytes / (time.perf_counter() - t0) / 1e9
+
+
+def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
+    """1 + ``n`` steps, each in a ``data.step`` span, under the port's
+    profile. The first is a warm-up, synchronized before the window of
+    the other ``n`` opens (a ``data.window`` span): the profiler may lose
+    device events at its start. The window's host ms, device busy ms and
+    share, its host-to-device copies' ms and count (2 a step: the busy
+    share is reported only when the trace holds them all), the warm-up's
+    copy count, and whether the trace file names the step's span."""
+    import glob
+
+    from torch.autograd import DeviceType
+    from ray_tpu_torch.util import profile, span
+
+    torch.cuda.synchronize()
+    with profile(log_dir, device="cuda") as prof:
+        with span("data.step"):
+            state, m = step_fn(state, next_batch())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with span("data.window"):
+            for _ in range(n):
+                with span("data.step"):
+                    state, m = step_fn(state, next_batch())
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "data.window"
+                and e.device_type == DeviceType.CPU)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith(("train.", "data."))]
+    window = [e for e in dev if e.time_range.start >= start]
+    h2d = [e.time_range.end - e.time_range.start for e in window
+           if "HtoD" in e.name]
+    warm_h2d = sum(1 for e in dev if e.time_range.start < start
+                   and "HtoD" in e.name)
+    require(len(h2d) == 2 * n, f"data: the trace holds {len(h2d)} of the "
+            f"window's {2 * n} host-to-device copies")
+    busy = _union_us((e.time_range.start, e.time_range.end)
+                     for e in window) / 1e3
+    named = any("data.step" in open(f).read()
+                for f in glob.glob(f"{log_dir}/*.pt.trace.json"))
+    return state, m, {"wall_ms": wall_ms, "device_busy_ms": busy,
+                      "device_busy_share": busy / wall_ms,
+                      "h2d_ms": sum(h2d) / 1e3, "h2d_copies": len(h2d),
+                      "warmup_h2d_copies": warm_h2d,
+                      "span_in_trace": named}
+
+
+def _feeds(place_batch):
+    """The two ways onto the card: a list of host batches in, an iterator
+    of placed batches out."""
+    from ray_tpu_torch.data import iter_device_batches
+
+    return {"place_batch": lambda bs: map(place_batch, bs),
+            "iter_device_batches": lambda bs: iter_device_batches(
+                iter(bs), device="cuda")}
+
+
+def _data_model(torch, name, init, loss_fn, cfg, lr, batches, log_dir):
+    """One model fed ``batches`` by place_batch and by
+    iter_device_batches in turns (place, prefetch, prefetch, place), each
+    turn DATA_STEPS steps after one warm-up step; then 2 traced steps a
+    feed, after a warm-up step. After each step of a turn an exact
+    checksum of the batch's bits (its 4-byte columns read as int32,
+    summed in int64) runs on the consumer's stream, before the batch is
+    let go; each must equal the host batch's. Returns the emitted
+    record."""
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(lr, weight_decay=0.0),
+        device="cuda")
+    state = init_fn(init(cfg, seed=7, device="cuda"))
+    state, m = step_fn(state, place_batch(batches[0]))
+    losses = [m["loss"]]
+    want = [sum(int(v.view("int32").sum(dtype="int64")) for v in b.values())
+            for b in batches]
+    feeds = _feeds(place_batch)
+    turns = []
+    for feed in ("place_batch", "iter_device_batches",
+                 "iter_device_batches", "place_batch"):
+        sums = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in feeds[feed](batches):
+            state, m = step_fn(state, batch)
+            losses.append(m["loss"])
+            sums.append(sum(v.view(torch.int32).sum(dtype=torch.int64)
+                            for v in batch.values()))
+        torch.cuda.synchronize()
+        turns.append({"feed": feed, "step_ms": (time.perf_counter() - t0)
+                      * 1e3 / len(batches)})
+        require([int(x) for x in sums] == want,
+                f"data: {name}: a {feed} batch's bits changed under its "
+                "step")
+    traced = {}
+    for feed, fn in feeds.items():
+        it = fn(batches[:4])
+        state, m, traced[feed] = _traced_steps(
+            torch, step_fn, state, lambda: next(it), f"{log_dir}/{feed}")
+        losses.append(m["loss"])
+        require(traced[feed]["span_in_trace"],
+                f"data: {name}: the span is not in the {feed} trace")
+    losses = [x.item() for x in losses]
+    require(all(math.isfinite(x) for x in losses),
+            f"data: {name}: a loss is not finite: {losses}")
+    return {"model": name, "turns": turns, "checksums_equal": True,
+            "traced": traced, "loss": losses}
+
+
+def phase_data(torch, card):
+    """The data-to-card path. (a) The iterator alone: 32 distinct seeded
+    host batches at ResNet-18's shape (B=256, 32x32x3 f32, int32 labels)
+    and at CLIP ViT-B/16's (128x224x224x3 f32, 128x77 int32 tokens),
+    through place_batch (pageable, synchronous) and iter_device_batches
+    (pinned, a side stream, one batch ahead) in turns: host-to-device
+    GB/s, every yielded tensor bit-equal to place_batch's. (b) The resnet
+    and clip phases' models and optimizers (bf16, seed 7) trained over 8
+    distinct seeded batches fed each way in turns: step ms, and the busy
+    share of 2 steps traced with util.tracing.profile, each step in a
+    util.tracing.span whose name the trace must hold; finite losses, and
+    CLIP's flash launches all on the tensor cores. (c) collect_hbm_stats:
+    the peak equals max_memory_allocated, the limit the card's memory."""
+    import tempfile
+
+    from ray_tpu_torch.models.clip import CLIP_CONFIGS, clip_loss, init_clip
+    from ray_tpu_torch.models.vision import (RESNET_CONFIGS, image_loss,
+                                             init_resnet)
+    from ray_tpu_torch.train import make_train_step
+    from ray_tpu_torch.util import collect_hbm_stats
+
+    t_phase = time.perf_counter()
+    _fresh_phase(torch)
+    ccfg, rcfg = CLIP_CONFIGS["vit_b16"], RESNET_CONFIGS["resnet18"]
+    s = ccfg.image_size
+    feeds = _feeds(make_train_step(lambda p, b: None, None,
+                                   device="cuda")[2])
+    alone = []
+    for name, shapes in (
+            ("resnet18", {"images": ((RESNET_B, RESNET_SIZE, RESNET_SIZE,
+                                      3), None),
+                          "labels": ((RESNET_B,), rcfg.num_classes)}),
+            ("clip_vit_b16", {"images": ((CLIP_B, s, s, 3), None),
+                              "tokens": ((CLIP_B, ccfg.max_text),
+                                         ccfg.vocab)})):
+        batches = _host_batches(torch, shapes, DATA_BATCHES, seed=11)
+        gbps, kept = [], {}
+        for feed in ("place_batch", "iter_device_batches",
+                     "iter_device_batches", "place_batch"):
+            out, rate = _feed_pass(torch, feeds[feed], batches)
+            gbps.append({"feed": feed, "gb_s": rate})
+            kept.setdefault(feed, out)
+        same = all(torch.equal(a[k], b[k])
+                   for a, b in zip(kept["place_batch"],
+                                   kept["iter_device_batches"], strict=True)
+                   for k in a)
+        require(same, f"data: {name}: a prefetched batch differs from "
+                "place_batch's")
+        alone.append({"shape": name, "batches": DATA_BATCHES,
+                      "bytes": sum(v.nbytes for b in batches
+                                   for v in b.values()),
+                      "turns": gbps, "bit_equal": same})
+        del batches, kept, out
+    _fresh_phase(torch)
+    with tempfile.TemporaryDirectory() as log_dir:
+        resnet = _data_model(
+            torch, "ResNet-18", init_resnet, image_loss, rcfg, 1e-4,
+            [{k: v.numpy() for k, v in _resnet_batch(
+                torch, rcfg, RESNET_B, RESNET_SIZE, seed=s).items()}
+             for s in range(DATA_STEPS)], f"{log_dir}/resnet")
+        _zero_counts()
+        clip = _data_model(
+            torch, "CLIP ViT-B/16", init_clip, clip_loss, ccfg, 1e-4,
+            [{k: v.numpy() for k, v in _clip_batch(
+                torch, ccfg, CLIP_B, seed=s).items()}
+             for s in range(DATA_STEPS)], f"{log_dir}/clip")
+        counts = _train_counts()
+    n_steps = 1 + 4 * DATA_STEPS + 2 * 3
+    want = _want_train_counts(ccfg.v_layers + ccfg.t_layers, steps=n_steps)
+    require(counts == want, f"data: CLIP launches {counts} != {want}")
+    stats = collect_hbm_stats()
+    require(len(stats) == 1, f"data: collect_hbm_stats gave {stats}")
+    require(stats[0]["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(),
+            "data: HBM peak != max_memory_allocated")
+    require(stats[0]["bytes_limit"]
+            == torch.cuda.get_device_properties(0).total_memory,
+            "data: HBM limit != the card's memory")
+    emit({"phase": "data", "iterator_alone": alone,
+          "training": [resnet, clip], "clip_launches": counts,
+          "hbm": stats, "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": card})
+    return counts
+
+
+CHANNEL_ROUNDS = 8
+# payload name -> {leaf: shape}, bf16: the 8B KV export of one 511-token
+# request (32 layers, 8 kv heads of 128: 67.0 MB), and 1 GiB
+CHANNEL_PAYLOADS = {"kv_8b_511": {"k": (32, 511, 8, 128),
+                                  "v": (32, 511, 8, 128)},
+                    "1gib": {"x": (1 << 29,)}}
+CHANNEL_LANES = ("ipc", "shm")
+
+
+def _channel_payload(torch, name, i):
+    g = torch.Generator("cuda").manual_seed(
+        1000 * list(CHANNEL_PAYLOADS).index(name) + i)
+    return {k: torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+            for k, shape in CHANNEL_PAYLOADS[name].items()}
+
+
+def _channel_reader(dc_path, ch_path, out):
+    """The channel phase's reader, a spawned process on the same card: for
+    each payload and lane it regenerates the CHANNEL_ROUNDS payloads from
+    their seeds, reports ready, reads them (over DeviceChannel, or leaf by
+    leaf over the Channel's tensor lane), and reports the time each read
+    ended, bit-equality and its counters."""
+    import traceback
+
+    import torch
+
+    from ray_tpu_torch.experimental import Channel, DeviceChannel
+
+    try:
+        dc = DeviceChannel(dc_path, device="cuda")
+        ch = Channel(ch_path, device="cuda")
+        for name in CHANNEL_PAYLOADS:
+            for lane in CHANNEL_LANES:
+                want = [_channel_payload(torch, name, i)
+                        for i in range(CHANNEL_ROUNDS)]
+                torch.cuda.synchronize()
+                out.put(("ready", name, lane))
+                got, ends = [], []
+                for _ in range(CHANNEL_ROUNDS):
+                    got.append(dc.read(timeout=300) if lane == "ipc" else
+                               {k: ch.read(0, timeout=300)
+                                for k in sorted(CHANNEL_PAYLOADS[name])})
+                    torch.cuda.synchronize()
+                    ends.append(time.perf_counter())
+                equal = all(torch.equal(g[k], w[k])
+                            for g, w in zip(got, want) for k in w)
+                out.put({"ends": ends, "equal": equal})
+                del got, want
+                torch.cuda.empty_cache()
+        out.put({"ipc_transfers": DeviceChannel.ipc_transfers,
+                 "host_lane_bytes": DeviceChannel.host_lane_bytes})
+        dc.close()
+        ch.close()
+    except Exception:
+        out.put({"error": traceback.format_exc()})
+
+
+def phase_channel(torch, card):
+    """Tensors between two processes on the one card: a reader spawned on
+    the same card takes each payload of CHANNEL_PAYLOADS CHANNEL_ROUNDS
+    times over DeviceChannel (CUDA IPC) and over the Channel's tensor
+    lane (device to shm to device), regenerates each from its seed and
+    requires it bit-equal. Every DeviceChannel payload crosses over IPC
+    and none over the host lane, on both sides. GB/s of each lane, and the
+    IPC lane's bound: the bytes its device copies (the writer's snapshot,
+    the reader's copy) read and write, over 3.35 TB/s."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    from ray_tpu_torch.experimental import Channel, DeviceChannel
+
+    t_phase = time.perf_counter()
+    _fresh_phase(torch)
+    biggest = max(2 * math.prod(s) for p in CHANNEL_PAYLOADS.values()
+                  for s in p.values())
+    capacity = biggest + 4096
+    # the tensor lane's file where the machine has room for it
+    shm_free = (os.statvfs("/dev/shm").f_bavail * os.statvfs(
+        "/dev/shm").f_frsize if os.path.isdir("/dev/shm") else 0)
+    tmp = tempfile.mkdtemp(dir="/dev/shm" if shm_free > 2 * capacity
+                           else None)
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    dc = DeviceChannel(os.path.join(tmp, "dc"), create=True)
+    ch = Channel(os.path.join(tmp, "ch"), create=True, capacity=capacity)
+    DeviceChannel.ipc_transfers = DeviceChannel.host_lane_bytes = 0
+    proc = ctx.Process(target=_channel_reader, args=(dc.path, ch.path, out),
+                       daemon=True)
+    proc.start()
+
+    def take(timeout):
+        msg = out.get(timeout=timeout)
+        require(not (isinstance(msg, dict) and "error" in msg),
+                f"channel: the reader failed: {msg}")
+        return msg
+
+    lanes = []
+    try:
+        for name, leaves in CHANNEL_PAYLOADS.items():
+            nbytes = sum(2 * math.prod(s) for s in leaves.values())
+            for lane in CHANNEL_LANES:
+                sends = [_channel_payload(torch, name, i)
+                         for i in range(CHANNEL_ROUNDS)]
+                torch.cuda.synchronize()
+                require(take(300) == ("ready", name, lane),
+                        "channel: the reader is out of step")
+                t0 = time.perf_counter()
+                for tree in sends:
+                    if lane == "ipc":
+                        dc.write(tree, timeout=300)
+                    else:
+                        for k in sorted(tree):
+                            ch.write(tree[k], timeout=300)
+                got = take(600)
+                require(got["equal"], f"channel: {lane} {name}: a payload "
+                        "differs from its seed's")
+                total = got["ends"][-1] - t0
+                rounds = [(b - a) * 1e3 for a, b in
+                          zip([t0] + got["ends"][:-1], got["ends"])]
+                lanes.append({"lane": lane, "payload": name,
+                              "bytes": nbytes, "rounds": CHANNEL_ROUNDS,
+                              "round_ms": rounds,
+                              "gb_s": CHANNEL_ROUNDS * nbytes / total / 1e9,
+                              "bit_equal": True})
+                if lane == "ipc":
+                    # the writer's snapshot and the reader's copy, each
+                    # reading and writing the payload once
+                    bound_ms = 4 * nbytes / HBM_BYTES_PER_S * 1e3
+                    lanes[-1].update({"bound_ms": bound_ms,
+                                      "bound_gb_s": nbytes / bound_ms / 1e6})
+                del sends
+                torch.cuda.empty_cache()
+        counts = take(120)
+        proc.join(timeout=60)
+        require(not proc.is_alive(), "channel: the reader did not exit")
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=30)
+        dc.close()
+        ch.close()
+        for p in (dc.path, ch.path):
+            if os.path.exists(p):
+                os.unlink(p)
+        os.rmdir(tmp)
+    writes = len(CHANNEL_PAYLOADS) * CHANNEL_ROUNDS
+    mine = {"ipc_transfers": DeviceChannel.ipc_transfers,
+            "host_lane_bytes": DeviceChannel.host_lane_bytes}
+    emit({"phase": "channel", "lanes": lanes, "writer_counts": mine,
+          "reader_counts": counts, "ipc_writes": writes,
+          "shm_dir": os.path.dirname(tmp), "shm_free_gb": shm_free / 1e9,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": card})
+    for side, c in (("writer", mine), ("reader", counts)):
+        require(c == {"ipc_transfers": writes, "host_lane_bytes": 0},
+                f"channel: the {side}'s counters {c}: want {writes} IPC "
+                "transfers and 0 host-lane bytes")
+    return {}
+
+
 def phase_reference(torch):
     """End to end against the CPU on a small input: a 2-layer f32 model
     (head_dim 128, GQA), dense and with 4 experts, served, then trained,
@@ -2243,16 +2652,12 @@ def _range_busy(prof, name):
     if not cpu:
         return {"host_ms": "not measured", "device_busy_ms": "not measured"}
     lo, hi = cpu[0].time_range.start, cpu[0].time_range.end
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith(("train.", "grpo."))
-                   and lo <= e.time_range.start <= hi)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("train.", "grpo."))
+             and lo <= e.time_range.start <= hi]
+    busy = _union_us(spans)
     return {"host_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / (hi - lo), "kernels": len(spans)}
 
@@ -2914,14 +3319,10 @@ def _profile_window(torch, fn):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kernels = [e for e in dev
                if not e.name.startswith(("train.", "grpo."))]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     if not spans:
         return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}, prof
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    busy = _union_us(spans)
     by_name = {}
     for ev in kernels:
         t, n = by_name.get(ev.name, (0.0, 0))
@@ -3152,7 +3553,8 @@ def main() -> int:
         return 2
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
                   "fleet", "hf", "train", "moe", "moe_train", "mamba",
-                  "clip", "resnet", "grpo", "rl", "reference", "timing"]
+                  "clip", "resnet", "data", "channel", "grpo", "rl",
+                  "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
         card = phase_device(torch)
@@ -3188,14 +3590,18 @@ def main() -> int:
         for name, phase in (("moe", phase_moe),
                             ("moe_train", phase_moe_train),
                             ("mamba", phase_mamba), ("clip", phase_clip),
-                            ("resnet", phase_resnet), ("grpo", phase_grpo),
+                            ("resnet", phase_resnet), ("data", phase_data),
+                            ("channel", phase_channel), ("grpo", phase_grpo),
                             ("rl", phase_rl)):
             if name in phases:
                 counts = phase(torch, card)
                 for kernel, n in counts.items():
                     launches[kernel] = launches.get(kernel, 0) + n
-                if name == "clip":
-                    clip_launches = counts
+                if name in ("clip", "data"):
+                    # CLIP's training, fed both ways in data
+                    for kernel, n in counts.items():
+                        clip_launches[kernel] = (clip_launches.get(kernel, 0)
+                                                 + n)
                 torch.cuda.empty_cache()
         if "reference" in phases:
             # the head_dim-16 runs (tiny, jamba_tiny, GRPO) count too

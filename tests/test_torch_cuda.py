@@ -1053,3 +1053,154 @@ def test_resnet_tiny_steps_on_card_match_cpu(gen):
                                      dtype=torch.int32)}
     _vision_steps_card_vs_cpu(image_loss, cfg,
                               init_resnet(cfg, seed=4, device="cpu"), batch)
+
+
+# --- the data-to-card path, the channels and the device utilities ---
+
+def test_prefetched_batches_equal_place_batch_under_consumer_kernels(gen):
+    """iter_device_batches yields place_batch's bits, and they stay so
+    while the consumer's kernels run on each batch after its reference is
+    dropped (record_stream keeps the allocator from handing the memory
+    to the next batch's copy early)."""
+    import numpy as np
+
+    from ray_tpu_torch.data import iter_device_batches
+
+    rng = np.random.default_rng(0)
+    batches = [{"x": rng.standard_normal((64, 256, 256)).astype(np.float32),
+                "y": rng.integers(0, 1000, 64).astype(np.int32)}
+               for _ in range(12)]
+    _, _, place_batch = make_train_step(lambda p, b: None, None,
+                                        device="cuda")
+    w = torch.randn(256, 256, generator=gen, device="cuda")
+    sums = []
+    for b in iter_device_batches(iter(batches)):
+        x = b["x"]
+        acc = x
+        for _ in range(8):          # keep the consumer's stream busy
+            acc = torch.tanh(acc @ w)
+        # an exact checksum of the bits, taken after the slow chain
+        sums.append((x.view(torch.int32).to(torch.int64).sum()
+                     + b["y"].to(torch.int64).sum(), acc.sum()))
+        del b, x, acc
+    torch.cuda.synchronize()
+    want = [int(b["x"].view(np.int32).astype(np.int64).sum()
+                + b["y"].astype(np.int64).sum()) for b in batches]
+    assert [int(s) for s, _ in sums] == want
+    got = list(iter_device_batches(iter(batches)))
+    for g, b in zip(got, batches, strict=True):
+        p = place_batch(b)
+        for k in b:
+            assert g[k].device.type == "cuda" and g[k].dtype == p[k].dtype
+            assert torch.equal(g[k], p[k])
+
+
+def test_device_channel_over_ipc_to_a_spawned_reader(gen):
+    """A bf16 tree through DeviceChannel to a spawned reader on the same
+    card: bit-equal, every payload over CUDA IPC and no host-lane byte, on
+    both sides; the writer's tensors are mutated after each write, and it
+    keeps no staged block for a reader in its own process (there is none:
+    the reader's mapping keeps each block alive)."""
+    import multiprocessing
+
+    import torch_channel_peer
+    from ray_tpu_torch.experimental import DeviceChannel, device_channel
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    ch = DeviceChannel()
+    DeviceChannel.ipc_transfers = DeviceChannel.host_lane_bytes = 0
+    proc = ctx.Process(target=torch_channel_peer.read_trees,
+                       args=(ch.path, 4, "cuda", out), daemon=True)
+    proc.start()
+    try:
+        for i in range(4):
+            t = torch_channel_peer.tree(i, "cuda")
+            ch.write(t, timeout=60)
+            for v in t.values():
+                v.fill_(-7)          # the snapshot was taken at write
+            assert not device_channel._staged
+        ch.close_write()
+        got = out.get(timeout=120)
+        proc.join(timeout=30)
+        assert not proc.is_alive()
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        ch.close()
+        ch.unlink()
+    assert "error" not in got, got
+    assert got["equal"] == [True] * 4 and got["placed"] == [True] * 4
+    assert got["dtypes"] == ["torch.bfloat16"] * 4 and got["closed"]
+    assert (got["ipc_transfers"], got["host_lane_bytes"]) == (4, 0)
+    assert (DeviceChannel.ipc_transfers, DeviceChannel.host_lane_bytes) == \
+        (4, 0)
+
+
+def test_device_channel_in_one_process_copies_directly(gen):
+    """Writer and reader in one process (a handle cannot be opened by the
+    process that made it): the staged block is copied directly, and what
+    is read is the reader's own memory."""
+    from ray_tpu_torch.experimental import DeviceChannel
+
+    ch = DeviceChannel()
+    try:
+        reader = DeviceChannel(ch.path, device="cuda")
+        for i in range(3):
+            t = {"k": [_randn(gen, (5, 7), torch.bfloat16)],
+                 "v": _randn(gen, (3,))}
+            want = tree_map(lambda a: a.clone(), t)
+            ch.write(t, timeout=30)
+            t["v"].zero_()
+            got = reader.read(timeout=30)
+            assert torch.equal(got["k"][0], want["k"][0])
+            assert torch.equal(got["v"], want["v"])
+            assert got["v"].data_ptr() != t["v"].data_ptr()
+    finally:
+        ch.close()
+        ch.unlink()
+
+
+def test_channel_tensor_lane_carries_a_cuda_tensor(gen):
+    from ray_tpu_torch.experimental import Channel
+
+    ch = Channel(capacity=1 << 20)
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _randn(gen, (33, 65), dtype)
+            ch.write(x, timeout=10)
+            got = ch.read(0, timeout=10)
+            assert got.device.type == "cuda" and torch.equal(got, x)
+    finally:
+        ch.close()
+        ch.unlink()
+
+
+def test_hbm_stats_are_the_allocators_counters(gen):
+    from ray_tpu_torch.util import collect_hbm_stats
+
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    (rec,) = collect_hbm_stats()
+    assert rec["platform"] == "gpu" and rec["device"] == "0"
+    assert rec["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert rec["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+    assert rec["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory
+    assert 0.0 <= rec["fragmentation"] <= 1.0
+    del keep
+
+
+def test_profile_on_card_names_its_span(gen, tmp_path):
+    import glob
+
+    from torch.autograd import DeviceType
+
+    from ray_tpu_torch.util import profile, span
+
+    a = _randn(gen, (512, 512))
+    with profile(str(tmp_path)) as prof:
+        with span("card.span.matmul"):
+            (a @ a).sum().item()
+    (trace,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    assert "card.span.matmul" in open(trace).read()
+    assert any(e.device_type == DeviceType.CUDA for e in prof.events())

@@ -237,3 +237,58 @@ def test_checkpoint_and_vision_entry_points_raise_without_a_card(
         load_hf_checkpoint(str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_llm_processor("tiny")({"prompt_ids": [[1, 2]]})
+
+
+def test_the_walk_covers_the_device_utilities_and_channels():
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.util.hbm", "ray_tpu_torch.util.tracing",
+              "ray_tpu_torch.data.batches",
+              "ray_tpu_torch.experimental.channel",
+              "ray_tpu_torch.experimental._transfer_shim",
+              "ray_tpu_torch.experimental.device_channel"):
+        assert m in mods, m
+
+
+def test_data_tracing_and_channel_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path):
+    """With no card: iter_device_batches, profile and the read of a
+    device-flagged Channel payload (or of any DeviceChannel payload)
+    raise, naming device='cpu', at the call and before they take the
+    payload; a Channel is made and written without one, and the HBM
+    stats are empty."""
+    import numpy as np
+
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.experimental import Channel, DeviceChannel
+    from ray_tpu_torch.util import collect_hbm_stats, profile
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        iter_device_batches(iter([{"x": np.zeros(2)}]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with profile(str(tmp_path)):
+            pass
+    ch = Channel(str(tmp_path / "chan"), create=True, capacity=1 << 12)
+    try:
+        ch.write(torch.ones(3), timeout=5)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ch.read(0, timeout=5)
+        ch.device = "cpu"       # the payload stays until a read takes it
+        assert torch.equal(ch.read(0, timeout=5), torch.ones(3))
+        ch.device = None
+        ch.write(np.ones(3), timeout=5)     # numpy needs no device
+        assert isinstance(ch.read(0, timeout=5), np.ndarray)
+    finally:
+        ch.close()
+    dc = DeviceChannel(device="cpu")
+    try:
+        reader = DeviceChannel(dc.path)
+        dc.write({"x": torch.ones(2)}, timeout=5)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            reader.read(timeout=5)
+        reader.device = "cpu"
+        assert torch.equal(reader.read(timeout=5)["x"], torch.ones(2))
+    finally:
+        dc.close()
+        dc.unlink()
+    assert collect_hbm_stats() == []
