@@ -27,6 +27,13 @@ Phases, one JSON line each on stdout:
      fleet   - a prefill engine exports the 4 longest prompts after their
                first token; a second engine injects them and decodes 32
                tokens each with no prefill.
+     serve   - the same model through LLMServer (seed 7): the TTFT of a
+               streamed 511-token completion, 8 concurrent 64-token
+               completions in turns with the engine stepped directly on
+               the same schedule (equal streams), the metrics' counts and
+               the kernels' launches; then a prefill and a decode server
+               in one process hand the 4 longest prompts' KV off in 8 MiB
+               chunks (no retry, no decode-side prefill).
      hf      - the same weights written as an HF safetensors checkpoint
                (save_hf_checkpoint, Meta-Llama-3-8B's layout, 16.1 GB),
                loaded back bit-equal and served on the engine phase's
@@ -80,7 +87,8 @@ Phases, one JSON line each on stdout:
                a small f32 Jamba trained; `tiny` (head_dim 16) served and
                trained, `jamba_tiny` trained, and GRPO on `tiny`; `tiny`
                CLIP and ResNet trained 3 steps (every param within 1e-5),
-               and `tiny` saved, loaded and served from the checkpoint.
+               `tiny` saved, loaded and served from the checkpoint, and
+               served through LLMServer, mono and pooled.
   8. timing  - kernel, plain-version and library times, and the bound;
                the three flash kernels also at CLIP's D=64 vision and text
                shapes.
@@ -1142,6 +1150,403 @@ def phase_fleet(torch, card):
             "paged_decode": counts["paged_decode"]}
 
 
+SERVE_TOKENS = 64      # new tokens a request in the serve phase's mono runs
+
+
+class _DecodePool:
+    """The decode pool as a prefill server's handle sees it, in one
+    process: route() hands the payload to the decode server directly and
+    records its chunks and bytes. A handoff retry fails the phase: neither
+    a retry nor a recompute may hide a fault on this path."""
+
+    def __init__(self, server):
+        self.server = server
+        self.chunks = []
+        self.nbytes = 0
+
+    def route(self, payload, request_id=None, tenant_id=None):
+        refs = payload["kv_refs"]
+        self.chunks.append(len(refs))
+        self.nbytes += sum(k.nbytes + v.nbytes for k, v in refs)
+        return self.server.decode_from_kv(payload), self.server
+
+    def _refresh(self, force=False):
+        raise SmokeFailure("serve: a KV handoff was retried")
+
+
+def _pooled_servers(make):
+    """A prefill server and a decode server from ``make(hooks)``,
+    configured as one pooled deployment's replicas through ServeHooks
+    whose handle reaches the decode server in this process."""
+    from ray_tpu_torch.llm import ServeHooks
+
+    decode = make(None)
+    decode_pool = _DecodePool(decode)
+    prefill = make(ServeHooks(
+        handle=lambda deployment, method, pool: decode_pool))
+    prefill.configure_pool("prefill", "llm")
+    decode.configure_pool("decode", "llm")
+    return prefill, decode, decode_pool
+
+
+def _completions(server, prompts, n_tokens, stream=False):
+    """Concurrent greedy completions of ``prompts``: the bodies, or with
+    ``stream`` the chunk lists."""
+    import asyncio
+
+    async def one(p):
+        out = await server.completions({"prompt_ids": p, "temperature": 0.0,
+                                        "max_tokens": n_tokens,
+                                        "stream": stream})
+        if stream:
+            return [c async for c in out]
+        return out
+
+    async def go():
+        return await asyncio.gather(*[one(p) for p in prompts])
+
+    return asyncio.run(go())
+
+
+def _stream_tokens(chunks):
+    return [json.loads(c[len("data: "):])["token"] for c in chunks]
+
+
+def _record_calls(obj, name):
+    """Wrap the method ``name`` of ``obj`` to record (start, end) of each
+    call on the host clock. The engine's step, export and inject end with
+    their host copies, so their ends are synced."""
+    calls = []
+    method = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = method(*args, **kwargs)
+        calls.append((t0, time.perf_counter()))
+        return out
+
+    setattr(obj, name, timed)
+    return calls
+
+
+def _step_times(steps, t0, t1):
+    """The steps inside [t0, t1]: their count, their summed host ms, and
+    the wall ms outside them a step (the pump's hops, the queues,
+    asyncio; for the engine stepped directly, its loop)."""
+    inside = [s for s in steps if s[0] >= t0 and s[1] <= t1]
+    busy = sum(b - a for a, b in inside)
+    return {"steps": len(inside), "step_ms": busy * 1e3,
+            "outside_ms_per_step": ((t1 - t0) - busy) * 1e3
+            / max(1, len(inside))}
+
+
+def _direct_engine(engine, prompts, n_tokens):
+    """The server's schedule without the server: every prompt added, then
+    step() until done. The streams in prompt order."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=n_tokens)
+    ids = [engine.add_request(p, sp) for p in prompts]
+    while engine.has_unfinished():
+        engine.step()
+    return [engine.requests.pop(i).output for i in ids]
+
+
+def _serve_metrics():
+    from ray_tpu_torch.util.metrics import snapshot_local
+
+    return {k: v for k, v in snapshot_local().items()
+            if (k.startswith("llm_") or k.startswith("serve_kv_handoff"))
+            and ("__stat__" in k or k.split("{")[0].endswith("_total"))}
+
+
+def phase_serve(torch, card):
+    """LLMServer at full width: Llama-3-8B (bf16, seed 7, the engine
+    phase's configuration and 8 prompts) served through the server's
+    pump. Mono: a warm-up completion, the TTFT of a streamed 511-token
+    completion on an idle server (equal to a non-streamed one), 8
+    concurrent 64-token completions (host tok/s, the metrics' counts, the
+    kernels' launches), and the same schedule stepped on the engine
+    directly, in turns with the server. Pooled: a prefill and a decode
+    server in one process, the 4 longest prompts, 32 tokens each, the KV
+    handed off in 8 MiB chunks with no retry and no decode-side
+    prefill."""
+    import asyncio
+
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    cfg = LLAMA_CONFIGS["8b"]
+    L = cfg.n_layers
+    prompts = _serving_prompts(torch, cfg.vocab)
+    engine_streams = _SERVING.get("streams")
+    # the server holds its own tree: the engine phases' copy goes
+    _SERVING.pop("params", None)
+    _fresh_phase(torch)
+
+    def make(hooks):
+        return LLMServer("8b", init="random", seed=7,
+                         engine_config=SERVE_ECFG, device="cuda",
+                         hooks=hooks)
+
+    t0 = time.perf_counter()
+    mono = make(None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = _record_calls(mono.engine, "step")
+    _completions(mono, [prompts[0][:16]], 9)        # warm-up, not counted
+
+    _zero_serving_counts()
+    before = mono.engine.stats()
+    m0 = _serve_metrics()
+
+    async def ttft():
+        t0 = time.perf_counter()
+        gen = await mono.completions({"prompt_ids": prompts[-1],
+                                      "temperature": 0.0,
+                                      "max_tokens": SERVE_TOKENS,
+                                      "stream": True})
+        first = await gen.__anext__()
+        dt = time.perf_counter() - t0
+        return dt, [first] + [c async for c in gen]
+
+    ttft_s, chunks = asyncio.run(ttft())
+    m1 = _serve_metrics()
+    streamed = _stream_tokens(chunks)
+    whole = _completions(mono, [prompts[-1]], SERVE_TOKENS)[0]
+    require(streamed == whole["choices"][0]["token_ids"],
+            "serve: the streamed 511-token completion differs from the "
+            "non-streamed one")
+    # the timed run: 8 concurrent completions
+    m2 = _serve_metrics()
+    t0 = time.perf_counter()
+    bodies = _completions(mono, prompts, SERVE_TOKENS)
+    t1 = time.perf_counter()
+    m3 = _serve_metrics()
+    counts = _serving_counts()
+    st = mono.engine.stats()
+    delta = {k: st[k] - before[k] for k in ("prefills", "decode_steps",
+                                            "paged_decode_steps",
+                                            "decode_bursts")}
+    streams = [b["choices"][0]["token_ids"] for b in bodies]
+    for i, b in enumerate(bodies):
+        require(len(streams[i]) == SERVE_TOKENS
+                and b["choices"][0]["finish_reason"] == "length"
+                and all(0 <= t < cfg.vocab for t in streams[i]),
+                f"serve: request {i} gave {len(streams[i])} tokens, "
+                f"{b['choices'][0]['finish_reason']}")
+    turns = {"server": [{"tok_s": len(prompts) * SERVE_TOKENS / (t1 - t0),
+                         **_step_times(steps, t0, t1)}], "direct": []}
+    # in turns with the server, the same schedule on the engine directly
+    same_schedule = []
+    for kind in ("direct", "direct", "server", "server", "direct", "direct",
+                 "server"):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if kind == "server":
+            out = [b["choices"][0]["token_ids"] for b in
+                   _completions(mono, prompts, SERVE_TOKENS)]
+        else:
+            out = _direct_engine(mono.engine, prompts, SERVE_TOKENS)
+        t3 = time.perf_counter()
+        turns[kind].append({"tok_s": len(prompts) * SERVE_TOKENS / (t3 - t2),
+                            **_step_times(steps, t2, t3)})
+        same_schedule.append(min(_same_prefix(a, b)
+                                 for a, b in zip(out, streams)))
+
+    def mdelta(a, b, name, stat="__stat__=count,"):
+        key = f"{name}{{{stat}model=8b,pool=mono}}"
+        return b.get(key, 0.0) - a.get(key, 0.0)
+
+    obs = {n: mdelta(m2, m3, n) for n in (
+        "llm_ttft_seconds", "llm_tpot_seconds", "llm_request_e2e_seconds")}
+    generated = mdelta(m2, m3, "llm_generation_tokens_total", "")
+    want_flash, want_paged = L * delta["prefills"], L * delta[
+        "paged_decode_steps"]
+    mono_line = {
+        "phase": "serve", "mode": "mono", "model": "llama3-8b",
+        "dtype": "bf16", "init_s": init_s, "requests": len(prompts),
+        "tokens_each": SERVE_TOKENS,
+        "ttft_511_ms": ttft_s * 1e3,
+        "ttft_511_engine_ms": 1e3 * mdelta(m0, m1, "llm_ttft_seconds",
+                                           "__stat__=sum,"),
+        "wall_s": t1 - t0, "turns": turns,
+        "turns_same_prefix_min": same_schedule,
+        "engine_phase_same_prefix": (
+            [_same_prefix(a, b) for a, b in zip(streams, engine_streams)]
+            if engine_streams else None),
+        "observations": obs, "generated_tokens": generated,
+        **delta, "flash_fwd_launches": counts["flash_fwd"],
+        "flash_fwd_tc_launches": counts["flash_fwd_tc"],
+        "paged_decode_launches": counts["paged_decode"],
+        "expected_flash": want_flash, "expected_paged": want_paged,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "nvidia_smi": card}
+    emit(mono_line)
+    require(all(v == len(prompts) for v in obs.values()),
+            f"serve: metric observations {obs}, expected 8 each")
+    require(generated == len(prompts) * SERVE_TOKENS,
+            f"serve: {generated} generated tokens counted")
+    require(counts["flash_fwd"] == counts["flash_fwd_tc"] == want_flash > 0,
+            f"serve: flash launches {counts}, expected {want_flash} on "
+            f"the tensor cores")
+    require(counts["paged_decode"] == want_paged > 0
+            and delta["paged_decode_steps"] == delta["decode_steps"],
+            f"serve: paged launches {counts}, expected {want_paged}")
+    require(same_schedule == [SERVE_TOKENS] * len(same_schedule),
+            "serve: a run on the same schedule (the server's again, or the "
+            "engine's) gave other streams")
+    launches = {"flash_fwd": counts["flash_fwd"],
+                "paged_decode": counts["paged_decode"]}
+    del mono, bodies
+    _fresh_phase(torch)
+
+    # pooled: two trees, one cache each; streamed, so that a handoff's
+    # seconds are its export, puts and inject, not the whole decode
+    picks = list(range(4, 8))
+    prefill, decode, pool = _pooled_servers(make)
+    exports = _record_calls(prefill.engine, "export_kv_request")
+    injects = _record_calls(decode.engine, "inject_request")
+    _zero_serving_counts()
+    m4 = _serve_metrics()
+    t0 = time.perf_counter()
+    pooled = _completions(prefill, [prompts[i] for i in picks],
+                          SLICE_TOKENS, stream=True)
+    pooled_s = time.perf_counter() - t0
+    m5 = _serve_metrics()
+    counts = _serving_counts()
+    pst, dst = prefill.engine.stats(), decode.engine.stats()
+
+    def hdelta(name, stat=""):
+        key = f"{name}{{{stat}model=8b}}"
+        return m5.get(key, 0.0) - m4.get(key, 0.0)
+
+    handoff = {"bytes": hdelta("serve_kv_handoff_bytes_total"),
+               "retries": hdelta("serve_kv_handoff_retries_total"),
+               "count": hdelta("serve_kv_handoff_seconds", "__stat__=count,"),
+               "seconds": hdelta("serve_kv_handoff_seconds",
+                                 "__stat__=sum,")}
+    pstreams = [_stream_tokens(c) for c in pooled]
+    reasons = [json.loads(c[-1][len("data: "):]).get("finish_reason")
+               for c in pooled]
+    emit({"phase": "serve", "mode": "pooled", "model": "llama3-8b",
+          "dtype": "bf16", "requests": len(picks), "stream": True,
+          "prompt_lens": [len(prompts[i]) for i in picks],
+          "tokens_each": SLICE_TOKENS, "wall_s": pooled_s,
+          "chunks": pool.chunks, "payload_bytes": pool.nbytes,
+          "handoff": handoff,
+          "handoff_ms_each": 1e3 * handoff["seconds"] / max(
+              1, handoff["count"]),
+          "handoff_gb_s": pool.nbytes / max(1e-9, handoff["seconds"]) / 1e9,
+          "export_ms": [(b - a) * 1e3 for a, b in exports],
+          "inject_ms": [(b - a) * 1e3 for a, b in injects],
+          "mono_same_prefix": [_same_prefix(a, streams[i]) for a, i in
+                               zip(pstreams, picks)],
+          "prefill_prefills": pst["prefills"],
+          "prefill_decode_steps": pst["decode_steps"],
+          "decode_prefills": dst["prefills"], "injected": dst["injected"],
+          "decode_steps": dst["decode_steps"],
+          "paged_decode_steps": dst["paged_decode_steps"],
+          **{k + "_launches": v for k, v in counts.items()},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": card})
+    _check_streams(pstreams, cfg.vocab, SLICE_TOKENS, "serve pooled")
+    require(reasons == ["length"] * len(picks),
+            f"serve pooled: finish reasons {reasons}")
+    require(dst["prefills"] == dst["prefill_chunks"] == 0
+            and dst["injected"] == len(picks),
+            f"serve pooled: the decode server ran {dst['prefills']} "
+            f"prefills and injected {dst['injected']}")
+    require(handoff["retries"] == 0 and handoff["count"] == len(picks),
+            f"serve pooled: handoffs {handoff}")
+    require(handoff["bytes"] == pool.nbytes > 0,
+            f"serve pooled: {handoff['bytes']} bytes counted, "
+            f"{pool.nbytes} shipped")
+    require(len(pool.chunks) == len(picks) and min(pool.chunks) > 1,
+            f"serve pooled: chunks per request {pool.chunks}")
+    require(pst["decode_steps"] == 0 and counts["flash_fwd"]
+            == counts["flash_fwd_tc"] == L * pst["prefills"] == L * len(picks),
+            f"serve pooled: prefill launches {counts}")
+    require(counts["paged_decode"] == L * dst["paged_decode_steps"] > 0
+            and dst["paged_decode_steps"] == dst["decode_steps"],
+            f"serve pooled: paged launches {counts}")
+    launches["flash_fwd"] += counts["flash_fwd"]
+    launches["paged_decode"] += counts["paged_decode"]
+    del prefill, decode, pool
+    _fresh_phase(torch)
+    return launches
+
+
+def _reference_serve(torch):
+    """`tiny` (f32, head_dim 16) LLMServer on the card and on the CPU from
+    one pickle of weights: mono completions, and pooled ones through a
+    prefill and a decode server handing off one page a chunk, give
+    identical token ids on both devices and in both modes."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch._private.config import global_config
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models import params_to_numpy
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params
+
+    cfg = LLAMA_CONFIGS["tiny"]
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in (4, 17, 40, 64)]
+    ecfg = dict(max_num_seqs=4, page_size=16, num_pages=64, max_seq_len=128,
+                decode_burst=4)
+    flags = global_config()
+    chunk_bytes = flags.serve_kv_handoff_chunk_bytes
+    # one page a chunk: 2 layers of 16 positions x 2 kv heads x 16, k and v
+    flags.serve_kv_handoff_chunk_bytes = 2 * 2 * 16 * 2 * 16 * 4
+    tmp = tempfile.mkdtemp(prefix="serve-tiny-")
+    out, chunks, stats = {}, {}, {}
+    try:
+        path = os.path.join(tmp, "tiny.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(params_to_numpy(init_params(cfg, seed=5,
+                                                    device="cpu")), f)
+        _zero_serving_counts()
+        for dev in ("cpu", "cuda"):
+            def make(hooks, dev=dev):
+                return LLMServer("tiny", params_path=path,
+                                 engine_config=ecfg, device=dev,
+                                 hooks=hooks)
+
+            out[dev, "mono"] = [b["choices"][0]["token_ids"] for b in
+                                _completions(make(None), prompts, 24)]
+            prefill, decode, pool = _pooled_servers(make)
+            out[dev, "pooled"] = [b["choices"][0]["token_ids"] for b in
+                                  _completions(prefill, prompts, 24)]
+            chunks[dev] = pool.chunks
+            stats[dev] = {k: decode.engine.stats()[k]
+                          for k in ("prefills", "injected")}
+        torch.cuda.synchronize()
+    finally:
+        flags.serve_kv_handoff_chunk_bytes = chunk_bytes
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _serving_counts()
+    checks = {"mono_card_equals_cpu": out["cuda", "mono"] == out["cpu",
+                                                                 "mono"],
+              "pooled_card_equals_cpu": out["cuda", "pooled"]
+              == out["cpu", "pooled"],
+              "pooled_equals_mono": out["cuda", "pooled"]
+              == out["cuda", "mono"]}
+    emit({"phase": "reference_serve", "model": "tiny (f32, head_dim 16)",
+          **checks, "chunks": chunks, "decode_stats": stats,
+          "launches": counts})
+    require(all(checks.values()), f"tiny LLMServer: {checks}")
+    require(all(s == {"prefills": 0, "injected": len(prompts)}
+                for s in stats.values()),
+            f"tiny LLMServer: the decode server recomputed {stats}")
+    require(counts["flash_fwd"] > 0 and counts["paged_decode"] > 0,
+            f"tiny LLMServer did not take the kernels: {counts}")
+    return {k: counts[k] for k in ("flash_fwd", "paged_decode")}
+
+
 def _tree_bit_equal(torch, got, want):
     """Two trees of tensors: the same structure, dtypes and bits."""
     from ray_tpu_torch._private.tree import tree_leaves, tree_map
@@ -2127,8 +2532,9 @@ def phase_reference(torch):
     matmuls on the card run without TF32, so greedy streams must be
     identical. Then the head_dim-16 configurations and GRPO
     (_reference_small_heads), `tiny` CLIP and ResNet trained
-    (_reference_vision) and `tiny` served from a checkpoint
-    (_reference_hf_tiny), whose launches it returns."""
+    (_reference_vision), `tiny` served from a checkpoint
+    (_reference_hf_tiny) and through LLMServer (_reference_serve), whose
+    launches it returns."""
     import dataclasses
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
@@ -2177,7 +2583,7 @@ def phase_reference(torch):
     _reference_moe(torch, cfg, prompts, sp)
     _reference_jamba(torch)
     launches = _reference_small_heads(torch)
-    for run in (_reference_vision, _reference_hf_tiny):
+    for run in (_reference_vision, _reference_hf_tiny, _reference_serve):
         for k, n in run(torch).items():
             launches[k] = launches.get(k, 0) + n
     return launches
@@ -3552,7 +3958,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
-                  "fleet", "hf", "train", "moe", "moe_train", "mamba",
+                  "fleet", "serve", "hf", "train", "moe", "moe_train", "mamba",
                   "clip", "resnet", "data", "channel", "grpo", "rl",
                   "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
@@ -3571,7 +3977,8 @@ def main() -> int:
             launches["paged_decode"] = (launches.get("paged_decode", 0)
                                         + phase_engine_8k(torch, card))
         for name, phase in (("spec", phase_spec), ("lora", phase_lora),
-                            ("fleet", phase_fleet), ("hf", phase_hf)):
+                            ("fleet", phase_fleet), ("serve", phase_serve),
+                            ("hf", phase_hf)):
             if name in phases:
                 for kernel, n in phase(torch, card).items():
                     launches[kernel] = launches.get(kernel, 0) + n

@@ -15,7 +15,7 @@ import hashlib
 import struct
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, Iterable, List, Sequence
 
 import numpy as np
 import torch
@@ -65,6 +65,23 @@ def chained_page_keys(tokens: Sequence[int], page_size: int) -> List[bytes]:
         parent = h.digest()
         keys.append(parent)
     return keys
+
+
+# truncated digest width of the routing summaries (64-bit), as
+# ``serve/kv_router.py``'s: a collision can only misroute a request to a
+# replica that then prefills normally (its engine checks the full keys)
+DIGEST_BYTES = 8
+
+
+def truncate_keys(keys: Iterable[bytes]) -> List[bytes]:
+    return [k[:DIGEST_BYTES] for k in keys]
+
+
+def make_summary(keys: Iterable[bytes], page_size: int) -> Dict[str, Any]:
+    """The prefix-cache summary a replica publishes for the fleet's KV
+    router: its cached pages' keys, truncated, as a set. The port's copy
+    of ``serve/kv_router.py::make_summary``."""
+    return {"page_size": int(page_size), "digests": set(truncate_keys(keys))}
 
 
 class PageAllocator:

@@ -152,6 +152,9 @@ class SpecDecoder:
     def drop(self, slot: int) -> None:
         self.ready.discard(slot)
 
+    def reset(self) -> None:
+        self.ready.clear()
+
     def on_round(self, drafted: int, accepted: int) -> None:
         self.drafted_total += drafted
         self.accepted_total += accepted
@@ -162,6 +165,12 @@ class SpecDecoder:
     def acceptance_ratio(self) -> float:
         return (self.accepted_total / self.drafted_total
                 if self.drafted_total else 0.0)
+
+    def take_verify_times(self) -> List[float]:
+        """The verify forwards' seconds since the last call (the serve
+        pump drains them into its histogram)."""
+        out, self.verify_times = self.verify_times, []
+        return out
 
     def stats(self) -> Dict[str, Any]:
         return {

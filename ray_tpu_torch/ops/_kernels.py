@@ -143,6 +143,11 @@ def lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+# the wrappers' launch counters (``<wrapper>.launches``) are shared by
+# every thread of the process: two serve pumps may launch at once
+COUNT_LOCK = threading.Lock()
+
+
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -226,9 +226,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
              int(causal), _FLASH_DTYPES[q.dtype],
              _kernels.stream_ptr(q.device))
     _kernels.check("flash_fwd", err)
-    flash_attention.launches += 1
-    if route == "tc":
-        flash_attention.launches_tc += 1
+    with _kernels.COUNT_LOCK:
+        flash_attention.launches += 1
+        if route == "tc":
+            flash_attention.launches_tc += 1
     return (out, lse) if return_lse else out
 
 
@@ -365,9 +366,10 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
              int(causal), _FLASH_DTYPES[q.dtype],
              _kernels.stream_ptr(q.device))
     _kernels.check("flash_bwd_dq", err)
-    flash_bwd_dq.launches += 1
-    if route == "tc":
-        flash_bwd_dq.launches_tc += 1
+    with _kernels.COUNT_LOCK:
+        flash_bwd_dq.launches += 1
+        if route == "tc":
+            flash_bwd_dq.launches_tc += 1
     return dq
 
 
@@ -408,9 +410,10 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,
              *args, int(causal), _FLASH_DTYPES[q.dtype],
              _kernels.stream_ptr(q.device))
     _kernels.check("flash_bwd_dkv", err)
-    flash_bwd_dkv.launches += 1
-    if route == "tc":
-        flash_bwd_dkv.launches_tc += 1
+    with _kernels.COUNT_LOCK:
+        flash_bwd_dkv.launches += 1
+        if route == "tc":
+            flash_bwd_dkv.launches_tc += 1
     return dk, dv
 
 

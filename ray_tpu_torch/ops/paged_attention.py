@@ -148,7 +148,8 @@ def paged_decode_attention(q, cache_k, cache_v, new_k, new_v,
              n_splits, float(hd) ** -0.5, _DTYPES[q.dtype],
              _kernels.stream_ptr(q.device))
     _kernels.check("paged_decode", err)
-    paged_decode_attention.launches += 1
+    with _kernels.COUNT_LOCK:
+        paged_decode_attention.launches += 1
     return out
 
 

@@ -13,9 +13,9 @@ process has not used: the stats cover the cards on which the caching
 allocator has reserved memory, so that asking a card with no context for
 its free memory does not open one there. With no card, or before this
 process has used one, :func:`collect_hbm_stats` returns ``[]``, as the
-reference does on its CPU backend. Publishing the stats as gauges
-(``publish_hbm_gauges``) belongs to the reference's host plane and is not
-ported.
+reference does on its CPU backend. :func:`publish_hbm_gauges` sets the
+reference's four ``hbm_*`` gauges from them through the port's
+``util/metrics.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,18 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+
+from . import metrics
+
+# gauge name, stats key, description (the reference's hbm_* family)
+_GAUGES = (
+    ("hbm_bytes_in_use", "bytes_in_use", "live HBM buffer bytes per chip"),
+    ("hbm_bytes_limit", "bytes_limit", "HBM capacity per chip"),
+    ("hbm_peak_bytes_in_use", "peak_bytes_in_use",
+     "peak live HBM bytes per chip"),
+    ("hbm_fragmentation", "fragmentation",
+     "fraction of free HBM not in the largest free block"),
+)
 
 
 def stats_from_torch(memory_stats: Dict[str, int], free: int, total: int,
@@ -99,3 +111,18 @@ def collect_hbm_stats(devices: Optional[list] = None) -> List[dict]:
             "fragmentation": max(0.0, min(1.0, frag)),
         })
     return out
+
+
+def publish_hbm_gauges(node: str = "",
+                       devices: Optional[list] = None) -> List[dict]:
+    """Set the hbm_* gauge family from the current allocator state and
+    return the collected stats. Tags carry the node and the device ordinal
+    so that an aggregate stays per card."""
+    stats = collect_hbm_stats(devices)
+    for st in stats:
+        tags = {"node": node, "device": st["device"],
+                "platform": st["platform"]}
+        for name, key, desc in _GAUGES:
+            # re-creating a gauge aliases the registered series
+            metrics.Gauge(name, desc).set(st[key], tags=tags)
+    return stats

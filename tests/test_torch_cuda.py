@@ -1204,3 +1204,36 @@ def test_profile_on_card_names_its_span(gen, tmp_path):
     (trace,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
     assert "card.span.matmul" in open(trace).read()
     assert any(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def test_tiny_server_on_card_equals_cpu(gen, tmp_path):
+    """LLMServer on the card (its pump steps the engine on an executor
+    thread) gives the CPU server's greedy f32 tokens from one pickle of
+    weights, through the flash and paged kernels."""
+    import asyncio
+    import pickle
+
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models import LLAMA_CONFIGS
+
+    path = tmp_path / "tiny.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(params_to_numpy(init_params(LLAMA_CONFIGS["tiny"],
+                                                seed=3, device="cpu")), f)
+    ecfg = dict(max_num_seqs=4, page_size=4, num_pages=64, max_seq_len=64)
+    payloads = [{"prompt_ids": p, "temperature": 0.0, "max_tokens": n}
+                for p, n in (([5, 17, 99, 3], 9), ([7, 8, 9], 5),
+                             (list(range(20, 40)), 12))]
+    outs = {}
+    flash_attention.launches = paged_decode_attention.launches = 0
+    for dev in ("cpu", "cuda"):
+        server = LLMServer("tiny", params_path=str(path),
+                           engine_config=ecfg, device=dev)
+
+        async def go():
+            return await asyncio.gather(
+                *[server.completions(dict(p)) for p in payloads])
+
+        outs[dev] = asyncio.run(go())
+    assert outs["cuda"] == outs["cpu"]
+    assert flash_attention.launches > 0 and paged_decode_attention.launches > 0

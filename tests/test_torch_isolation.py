@@ -292,3 +292,26 @@ def test_data_tracing_and_channel_entry_points_raise_without_a_card(
         dc.close()
         dc.unlink()
     assert collect_hbm_stats() == []
+
+
+def test_the_walk_covers_the_server_and_its_metrics():
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.llm.serve", "ray_tpu_torch.util.metrics"):
+        assert m in mods, m
+
+
+def test_server_entry_points_raise_without_a_card(monkeypatch):
+    """With no card visible, LLMServer without device= raises naming
+    device='cpu'; build_llm_deployment without the host plane's
+    deployment raises naming it."""
+    from ray_tpu_torch.llm import LLMServer, build_llm_deployment
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMServer("tiny")
+    with pytest.raises(ValueError, match="deployment="):
+        build_llm_deployment("tiny")
+    server = LLMServer("tiny", device="cpu", engine_config=dict(
+        max_num_seqs=1, page_size=4, num_pages=32, max_seq_len=32))
+    assert server.engine.device == torch.device("cpu")
