@@ -44,6 +44,15 @@ Phases, one JSON line each on stdout:
                "full") trained by make_train_step with AdamW at B=1,
                S=2048: one warm-up step, then 3 timed steps on one batch;
                checks the loss falls, the launch counts, the peak memory.
+     parallel - the multi-device plane over a world-1 NCCL group on the
+               card: every collective, symbolic and eager, f32 and bf16,
+               equal to its world-1 value (host µs a call, the NCCL
+               kernels of a traced round); the train phase's 8B step
+               through make_train_step(mesh=build_mesh(MeshSpec())),
+               losses and grad norms against the train phase's (2**-8
+               relative, bit-equal expected) and its step ms beside
+               theirs; the 8B forward with mesh= and without, equal
+               logits.
   6. moe     - Mixtral-8x7B widths (bf16, seed 7) at 16 of its 32 layers
                served like the engine phase, 32 tokens a request: launch
                counts, decode tokens against a fresh prefill of each prefix,
@@ -1716,10 +1725,20 @@ def _build_8b_trainer(torch):
         device="cuda",
         model_flops_per_token=_model_flops_per_token(cfg, TRAIN_S))
     state = init_fn(init_params(cfg, seed=7, device="cuda"))
-    g = torch.Generator().manual_seed(7)
-    batch = place_batch({"tokens": torch.randint(
-        0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=g, dtype=torch.int32)})
+    batch = place_batch(_train_batch(torch, cfg))
     return cfg, state, step_fn, batch
+
+
+def _train_batch(torch, cfg):
+    """The 8B training batch: B=1, S=2048 tokens from seed 7."""
+    g = torch.Generator().manual_seed(7)
+    return {"tokens": torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                    generator=g, dtype=torch.int32)}
+
+
+# the train phase's numbers, which the parallel phase's mesh step is held
+# against in the same call
+_TRAIN = {}
 
 
 def _timed_steps(torch, step_fn, state, batch, tokens_per_step):
@@ -1797,7 +1816,195 @@ def phase_train(torch):
           "launches": counts, "expected_launches": want,
           "step": int(m["step"])})
     _check_training(torch, losses, norms, counts, want, m)
+    _TRAIN.update(loss=losses, grad_norm=norms, step_ms=step_ms,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return counts
+
+
+# --- the multi-device plane at world size 1 --------------------------------
+
+PAR_REPS = 50       # timed calls of each collective
+
+
+def _world_one_ops(par, x):
+    """Every symbolic op of parallel/collectives.py on ``x`` (inside a
+    rank region), each beside its value at world size 1:
+    (name, call, expected)."""
+    ops = [(f"allreduce_{op}", lambda op=op: par.allreduce(x, "dp", op), x)
+           for op in ("sum", "mean", "max", "min", "prod")]
+    return ops + [
+        ("allreduce_sum_tuple", lambda: par.allreduce(x, ("dp", "tp")), x),
+        ("allgather", lambda: par.allgather(x, "dp"), x),
+        ("allgather_untiled", lambda: par.allgather(x, "dp", tiled=False),
+         x[None]),
+        ("reducescatter_sum", lambda: par.reducescatter(x, "dp"), x),
+        ("reducescatter_mean",
+         lambda: par.reducescatter(x, "dp", op="mean"), x),
+        ("broadcast", lambda: par.broadcast(x, "dp", root=0), x),
+        ("alltoall", lambda: par.alltoall(x, "dp", split_axis=1,
+                                          concat_axis=0), x),
+        ("send", lambda: par.send(x, "dp", shift=1), x),
+        ("recv", lambda: par.recv(x, "dp", shift=1), x),
+    ]
+
+
+def _collectives_world_one(torch, mesh):
+    """(a): every op, symbolic and eager, on f32 and bf16 card tensors,
+    bit-equal to its world-1 value; host µs a call; the NCCL kernels a
+    traced round launches."""
+    import ray_tpu_torch.parallel as par
+    from ray_tpu_torch.parallel.collectives import rank_region
+
+    g = torch.Generator("cuda").manual_seed(7)
+    group = par.pgroup(mesh, "dp")
+    results, host_us = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((8, 256), generator=g, device="cuda").to(dtype)
+        dt = str(dtype).split(".")[-1]
+        with rank_region(mesh):
+            for name, call, want in _world_one_ops(par, x):
+                got = call()
+                results[f"{name}_{dt}"] = bool(torch.equal(got, want))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(PAR_REPS):
+                    call()
+                torch.cuda.synchronize()
+                host_us[f"{name}_{dt}"] = ((time.perf_counter() - t0)
+                                           / PAR_REPS * 1e6)
+        eager = {"allreduce_" + op: (lambda op=op: group.allreduce(x, op), x)
+                 for op in ("sum", "mean", "max", "min", "prod")}
+        eager.update({
+            "allgather": (lambda: group.allgather(x), x),
+            "reducescatter": (lambda: group.reducescatter(x), x),
+            "broadcast": (lambda: group.broadcast(x, root=0), x),
+            "shift": (lambda: group.shift(x, shift=1), x)})
+        for name, (call, want) in eager.items():
+            results[f"pgroup_{name}_{dt}"] = bool(torch.equal(call(), want))
+    group.barrier()
+    group.barrier(timeout_s=30)
+    par.barrier(mesh, "dp", timeout_s=30)
+    from torch.autograd import DeviceType
+
+    with rank_region(mesh):
+        x = torch.randn((8, 256), generator=g, device="cuda")
+        ops = _world_one_ops(par, x)
+        trace, prof = _profile_window(torch,
+                                      lambda: [c() for _, c, _ in ops])
+    nccl = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and "nccl" in ev.name.lower():
+            us, n = nccl.get(ev.name, (0.0, 0))
+            nccl[ev.name] = (us + ev.time_range.end - ev.time_range.start,
+                             n + 1)
+    failed = [k for k, ok in results.items() if not ok]
+    require(not failed, f"world-1 collectives differ: {failed}")
+    return {"ops_checked": len(results), "host_us": host_us,
+            "traced_round": {k: trace[k] for k in trace if k != "top"},
+            "nccl_kernels": [{"name": k[:80], "us": us, "count": n}
+                             for k, (us, n) in sorted(nccl.items())]}
+
+
+def phase_parallel(torch, card):
+    """The multi-device plane on one card over a world-1 NCCL group:
+    (a) every collective in both modes against its world-1 value; (b)
+    Llama-3-8B trained 1+3 steps through make_train_step(mesh=
+    build_mesh(MeshSpec()), param_axes=param_logical_axes(cfg)) on the
+    train phase's seed and batch, its losses and grad norms against the
+    train phase's (bf16 rounding, 2**-8 relative; bit-equal expected),
+    its step ms beside the train phase's; (c) the 8B forward with mesh=
+    and without on the same weights, equal logits."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import (LLAMA_CONFIGS, forward,
+                                            init_params, lm_loss,
+                                            param_logical_axes)
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import distribute_pytree
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    _fresh_phase(torch)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = build_mesh(MeshSpec())
+    mesh_s = time.perf_counter() - t0
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "the mesh's group is not a world-1 NCCL group")
+    coll = _collectives_world_one(torch, mesh)
+    emit({"phase": "parallel", "part": "collectives", "mesh_s": mesh_s,
+          "backend": dist.get_backend(), **coll, "nvidia_smi": card})
+
+    # (b) the 8B step through the mesh
+    cfg = LLAMA_CONFIGS["8b"]
+    _fresh_phase(torch)
+    t0 = time.perf_counter()
+    init_fn, step_fn, place_batch = make_train_step(
+        lambda p, b: lm_loss(p, b, cfg, mesh=mesh),
+        adamw(3e-4, weight_decay=0.1), device="cuda",
+        model_flops_per_token=_model_flops_per_token(cfg, TRAIN_S),
+        mesh=mesh, param_axes=param_logical_axes(cfg))
+    state = init_fn(init_params(cfg, seed=7, device="cuda"))
+    batch = place_batch(_train_batch(torch, cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, losses, norms, step_ms, tok_s, counts, m = _timed_steps(
+        torch, step_fn, state, batch, TRAIN_B * TRAIN_S)
+    want = _want_train_counts(cfg.n_layers)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rel = lambda a, b: abs(a - b) / abs(b)
+    train = _TRAIN or {}
+    line = {"phase": "parallel", "part": "train_8b_mesh",
+            "mesh": "MeshSpec() (world 1, NCCL)", "init_s": init_s,
+            "loss": losses, "grad_norm": norms, "step_ms": step_ms,
+            "mean_step_ms": sum(step_ms) / 3, "tok_s": tok_s,
+            "peak_mem_gb": peak, "launches": counts,
+            "expected_launches": want, "nvidia_smi": card}
+    if train:
+        line.update({
+            "train_phase_loss": train["loss"],
+            "train_phase_grad_norm": train["grad_norm"],
+            "train_phase_step_ms": train["step_ms"],
+            "train_phase_mean_step_ms": sum(train["step_ms"]) / 3,
+            "train_phase_peak_mem_gb": train["peak_mem_gb"],
+            "loss_bit_equal": losses == train["loss"],
+            "grad_norm_bit_equal": norms == train["grad_norm"],
+            "max_rel_loss": max(map(rel, losses, train["loss"])),
+            "max_rel_grad_norm": max(map(rel, norms, train["grad_norm"]))})
+    emit(line)
+    _check_training(torch, losses, norms, counts, want, m)
+    if train:
+        require(line["max_rel_loss"] <= 2 ** -8
+                and line["max_rel_grad_norm"] <= 2 ** -8,
+                "the mesh step's losses or grad norms part from the train "
+                f"phase's: {losses} {norms} against {train['loss']} "
+                f"{train['grad_norm']}")
+    del state, batch, m
+    _fresh_phase(torch)
+
+    # (c) the forward with mesh= and without, on the same weights
+    params = init_params(cfg, seed=7, device="cuda")
+    tokens = _train_batch(torch, cfg)["tokens"].cuda()
+    fwd_before = _train_counts()
+    with torch.no_grad():
+        plain = forward(params, tokens, cfg)
+        placed = distribute_pytree(params, param_logical_axes(cfg), mesh)
+        meshed = forward(placed, tokens, cfg, mesh=mesh).full_tensor()
+    torch.cuda.synchronize()
+    fwd_counts = {k: v - fwd_before[k] for k, v in _train_counts().items()}
+    equal = bool(torch.equal(plain, meshed))
+    emit({"phase": "parallel", "part": "forward_8b",
+          "logits_equal": equal,
+          "max_abs_diff": (plain - meshed).abs().max().item(),
+          "launches": fwd_counts,
+          "seconds": time.perf_counter() - t_phase})
+    require(equal, "the 8B logits with mesh= differ from those without")
+    require(fwd_counts["flash_fwd"] == 2 * cfg.n_layers
+            == fwd_counts["flash_fwd_tc"],
+            f"forward launches {fwd_counts}")
+    del params, placed, plain, meshed
+    _fresh_phase(torch)
+    dist.destroy_process_group()
+    return _train_counts()
 
 
 # --- the other single-device families: MoE Llama, Mamba-2, Jamba ------------
@@ -3958,7 +4165,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
-                  "fleet", "serve", "hf", "train", "moe", "moe_train", "mamba",
+                  "fleet", "serve", "hf", "train", "parallel", "moe",
+                  "moe_train", "mamba",
                   "clip", "resnet", "data", "channel", "grpo", "rl",
                   "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
@@ -3988,6 +4196,11 @@ def main() -> int:
         if "train" in phases:
             # flash_fwd runs on both paths: its row counts both runs
             for name, n in phase_train(torch).items():
+                launches[name] = launches.get(name, 0) + n
+            torch.cuda.empty_cache()
+        if "parallel" in phases:
+            # the 8B step and forwards through the mesh
+            for name, n in phase_parallel(torch, card).items():
                 launches[name] = launches.get(name, 0) + n
             torch.cuda.empty_cache()
         # the other families, after the 8B weights are freed; each phase

@@ -16,6 +16,21 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` in ``tree_leaves``'s order."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            done = {k: walk(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return next(it)
+
+    return walk(tree)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and of the trees in ``rest``,
     which have its structure."""

@@ -18,8 +18,8 @@ rounds P to bf16 before PV, as the reference's own Pallas kernel does.
 GELU is the tanh approximation, ``jax.nn.gelu``'s default. The towers run
 as a loop over their layers, each under ``torch.utils.checkpoint`` when
 ``cfg.remat`` is set and grad is on (the reference's ``jax.checkpoint``
-inside ``lax.scan``). Sharding axes (``clip_param_axes``) belong to the
-multi-device plane and are not ported.
+inside ``lax.scan``). ``clip_param_axes`` gives the logical axes the
+multi-device plane (``parallel``) places the params by.
 """
 
 from __future__ import annotations
@@ -87,6 +87,39 @@ CLIP_CONFIGS: Dict[str, CLIPConfig] = {
     # ViT-B/16-class two-tower (the classic CLIP-B recipe)
     "vit_b16": CLIPConfig(),
 }
+
+
+def _tower_axes(prefix):
+    return {
+        "attn_norm": ("layers", prefix),
+        "wqkv": ("layers", prefix, "heads_qkv"),
+        "wo": ("layers", "heads_qkv", prefix),
+        "mlp_norm": ("layers", prefix),
+        "w_up": ("layers", prefix, "mlp"),
+        "w_down": ("layers", "mlp", prefix),
+    }
+
+
+def clip_param_axes(cfg: CLIPConfig):
+    """Tree of logical-axis tuples mirroring init_clip's structure."""
+    return {
+        "vision": {
+            "patch_embed": (None, "embed"),
+            "cls": (None, None, "embed"),
+            "pos": (None, "embed"),
+            "tower": _tower_axes("embed"),
+            "norm": ("embed",),
+            "proj": ("embed", "clip"),
+        },
+        "text": {
+            "embed": ("vocab", "embed"),
+            "pos": (None, "embed"),
+            "tower": _tower_axes("embed"),
+            "norm": ("embed",),
+            "proj": ("embed", "clip"),
+        },
+        "logit_scale": (),
+    }
 
 
 def init_clip(cfg: CLIPConfig, seed: int = 0, device: DeviceLike = None):

@@ -16,6 +16,14 @@ MoE configurations (``n_experts > 0``) route each layer's MLP through
 ``ops.moe.moe_mlp`` (top-k, capacity-capped dispatch); ``forward`` can
 return the layers' summed load-balancing loss, which ``lm_loss`` adds
 with ``aux_loss_coef``.
+
+Under a mesh (``forward(..., mesh=...)``, params as DTensors placed by
+``param_logical_axes``) the activations are constrained at the
+reference's points and DTensor inserts the collectives, as GSPMD does
+there. Attention runs in a per-rank region on each rank's local q, k, v:
+``ring_attention`` over "sp" when the mesh has sp > 1, else the flash
+path with whole sequences and heads split over tp; so does the lm_head
+product, the vocab split over tp.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import functools
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -33,6 +42,12 @@ from .._private.tree import layer_params
 from ..ops import apply_rotary, attention, rms_norm, rope_frequencies
 from ..ops.moe import moe_mlp
 from ..ops.quant import logits_matmul
+from ..ops.ring_attention import ring_attention
+from ..parallel.collectives import shard_map
+from ..parallel.mesh import active_mesh, axis_sizes
+from ..parallel.sharding import (DEFAULT_RULES, _spec_for,
+                                 distribute_batch, fit_spec,
+                                 with_sharding_constraint_logical)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +97,37 @@ LLAMA_CONFIGS: Dict[str, LlamaConfig] = {
     "70b": LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
                        mlp_dim=28672),
 }
+
+
+def param_logical_axes(cfg: LlamaConfig):
+    """Tree of logical-axis tuples mirroring init_params' structure."""
+    if cfg.n_experts:
+        mlp_axes = {
+            "router": ("layers", "embed", "expert"),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        }
+    else:
+        mlp_axes = {
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            **mlp_axes,
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device=None):
@@ -140,27 +186,63 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None):
     }
 
 
-def _layer(x, lp, cfg: LlamaConfig, cos, sin):
+def _mesh_attention(q, k, v, mesh, rules):
+    """Attention on each rank's local q, k, v: ring attention over "sp"
+    when the mesh has sp > 1, else the flash path on whole sequences with
+    the batch and heads split as the rules split them."""
+    seq = "seq" if axis_sizes(mesh).get("sp", 1) > 1 else None
+    spec = _spec_for(("batch", seq, "heads", None), rules, mesh)
+    spec = min((fit_spec(spec, t.shape, mesh) for t in (q, k)), key=len)
+    fn = (functools.partial(ring_attention, axis="sp", causal=True) if seq
+          else functools.partial(attention, causal=True))
+    return shard_map(fn, mesh, spec, spec)(q, k, v)
+
+
+def _mesh_logits(x, head, mesh, rules):
+    """The lm_head product on each rank's local blocks, the vocab split
+    as the rules split it (DTensor has no rule for the card's bf16
+    product with an f32 result)."""
+    shape = (*x.shape[:-1], head.shape[-1])
+    spec = fit_spec(_spec_for(("batch", "seq", "vocab"), rules, mesh),
+                    shape, mesh)
+    spec = spec + (None,) * (3 - len(spec))
+    x_spec, head_spec = spec[:2], (None, spec[2])
+    return shard_map(logits_matmul, mesh, [x_spec, head_spec], spec)(
+        x, head)
+
+
+def _layer(x, lp, cfg: LlamaConfig, cos, sin, mesh=None, rules=None):
+    csl = functools.partial(with_sharding_constraint_logical, rules=rules,
+                            mesh=mesh)
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wq"]), cos, sin)
     k = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wk"]), cos, sin)
     v = torch.einsum("bsd,dhk->bshk", h, lp["wv"])
-    o = attention(q, k, v, causal=True)
-    x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
+    if mesh is None:
+        o = attention(q, k, v, causal=True)
+    else:
+        o = _mesh_attention(q, k, v, mesh, rules)
+    x = csl(x + torch.einsum("bshk,hkd->bsd", o, lp["wo"]),
+            ("batch", "seq", "embed"))
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    out, aux = _mlp(h, lp, cfg)
-    return x + out, aux
+    out, aux = _mlp(h, lp, cfg, csl if mesh is not None else None)
+    return csl(x + out, ("batch", "seq", "embed")), aux
 
 
-def _mlp(h, lp, cfg: LlamaConfig):
+def _mlp(h, lp, cfg: LlamaConfig, csl=None):
     """SwiGLU, or the routed expert MLP for MoE; and the layer's f32
     load-balancing loss (None when dense)."""
     if cfg.n_experts:
         return moe_mlp(h, lp["router"], lp["w_gate"], lp["w_up"],
                        lp["w_down"], top_k=cfg.top_k,
-                       capacity_factor=cfg.capacity_factor)
+                       capacity_factor=cfg.capacity_factor, csl=csl)
     g = torch.einsum("bsd,dm->bsm", h, lp["w_gate"])
     u = torch.einsum("bsd,dm->bsm", h, lp["w_up"])
+    if csl is not None:
+        # the hidden over tp: left to DTensor, the down projection's input
+        # can come out sharded three ways, whose first sharding
+        # propagation takes minutes on a 3-dim mesh
+        g, u = (csl(t, ("batch", "seq", "mlp")) for t in (g, u))
     out = torch.einsum("bsm,md->bsd", torch.nn.functional.silu(g) * u,
                        lp["w_down"])
     return out, None
@@ -190,35 +272,61 @@ def _layer_body(cfg: LlamaConfig):
     return functools.partial(checkpoint, _layer, **kw)
 
 
+def _replicated(t, mesh):
+    on = active_mesh(mesh)
+    return DTensor.from_local(t, on, [Replicate()] * on.mesh.ndim)
+
+
+
 def forward(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            return_aux: bool = False):
+            mesh=None, rules=DEFAULT_RULES, return_aux: bool = False):
     """tokens (B, S) int → logits (B, S, vocab) in f32. Attention is the
     flash kernels on the card and their plain versions on the CPU.
     ``return_aux``: also return the MoE load-balancing loss summed over
-    layers (f32 scalar, 0 for a dense model)."""
+    layers (f32 scalar, 0 for a dense model). With ``mesh`` the params
+    are DTensors on it, the tokens a DTensor or a tensor every rank holds
+    whole, and the logits a DTensor sharded by ("batch", "seq",
+    "vocab")."""
     S = tokens.shape[1]
     dev = tokens.device
     cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
                                 device=dev)
-    x = params["embed"][tokens.long()]
+    csl = functools.partial(with_sharding_constraint_logical, rules=rules,
+                            mesh=mesh)
+    table = params["embed"]
+    if mesh is not None:
+        tokens = distribute_batch(tokens, mesh, rules)
+        cos, sin = _replicated(cos, mesh), _replicated(sin, mesh)
+        # the table's embed dim unsharded before the gather, as in the
+        # reference: its vocab dim stays on tp
+        table = csl(table, ("vocab", None))
+    x = csl(table[tokens.long()], ("batch", "seq", "embed"))
     body = _layer_body(cfg)
     aux = None
     for li in range(cfg.n_layers):
         x, layer_aux = body(x, layer_params(params["layers"], li), cfg,
-                            cos, sin)
+                            cos, sin, mesh, rules)
         if layer_aux is not None:
             aux = layer_aux if aux is None else aux + layer_aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # operands in the model dtype, f32 accumulation and result
-    logits = logits_matmul(x.to(cfg.dtype), params["lm_head"].to(cfg.dtype))
+    x, head = x.to(cfg.dtype), params["lm_head"].to(cfg.dtype)
+    if mesh is None:
+        logits = logits_matmul(x, head)
+    else:
+        logits = _mesh_logits(x, head, mesh, rules)
+    logits = csl(logits, ("batch", "seq", "vocab"))
     if not return_aux:
         return logits
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=dev)
+        if mesh is not None:
+            aux = _replicated(aux, mesh)
     return logits, aux
 
 
-def lm_loss(params, batch, cfg: LlamaConfig, *, z_loss: float = 1e-4):
+def lm_loss(params, batch, cfg: LlamaConfig, *, mesh=None,
+            rules=DEFAULT_RULES, z_loss: float = 1e-4):
     """Next-token cross-entropy in f32 with the z-loss regularizer.
 
     batch: {"tokens": (B, S) int, "mask": optional (B, S) 0/1 valid}.
@@ -226,18 +334,25 @@ def lm_loss(params, batch, cfg: LlamaConfig, *, z_loss: float = 1e-4):
     loss = sum(nll * mask) / max(sum(mask), 1), plus ``aux_loss_coef``
     times the summed load-balancing loss for MoE (added after masking, so
     an all-masked MoE batch gives ``aux_loss_coef * aux``)."""
-    tokens = batch["tokens"]
+    tokens, mask = batch["tokens"], batch.get("mask")
+    if mesh is not None:
+        tokens, mask = (distribute_batch(t, mesh, rules) for t in (tokens, mask))
     if cfg.n_experts:
-        logits, aux = forward(params, tokens, cfg, return_aux=True)
+        logits, aux = forward(params, tokens, cfg, mesh=mesh, rules=rules,
+                              return_aux=True)
     else:
-        logits = forward(params, tokens, cfg)
+        logits = forward(params, tokens, cfg, mesh=mesh, rules=rules)
+    if mesh is not None:
+        # whole rows of the vocab and the sequence on each rank: DTensor's
+        # gather over a vocab-sharded dim fails
+        logits = with_sharding_constraint_logical(
+            logits, ("batch", None, None), rules, mesh)
     logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     nll = logz - logits.gather(-1, targets[..., None])[..., 0]
     if z_loss:
         nll = nll + z_loss * logz.square()
-    mask = batch.get("mask")
     mask = (torch.ones_like(nll) if mask is None
             else mask[:, 1:].to(nll.dtype))
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)

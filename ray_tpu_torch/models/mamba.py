@@ -11,8 +11,9 @@ their backward on the card).
 Parameters are the reference's stacked tree, so a ``ray_tpu`` tree
 converts leaf for leaf (models/convert.py); the forward also takes the
 trainer's per-layer lists (``unstack_layers``). Remat is per layer, or
-per period for Jamba, with ``torch.utils.checkpoint``. The reference's
-``mamba_param_axes`` is sharding and is not ported.
+per period for Jamba, with ``torch.utils.checkpoint``.
+``mamba_param_axes`` gives the params' logical axes for the multi-device
+plane (``parallel``).
 """
 
 from __future__ import annotations
@@ -113,6 +114,29 @@ MAMBA_CONFIGS: Dict[str, MambaConfig] = {
                               attn_period=4, attn_heads=8,
                               attn_kv_heads=4),
 }
+
+
+def mamba_param_axes(cfg: MambaConfig):
+    """Tree of logical-axis tuples mirroring init_mamba's structure."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "norm": ("layers", "embed"),
+            "w_in": ("layers", "embed", "mlp"),
+            "conv": ("layers", "conv", "mlp"),
+            "dt_bias": ("layers", "heads"),
+            "A_log": ("layers", "heads"),
+            "Dp": ("layers", "heads"),
+            "w_out": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+        **({"attn_layers": {
+            "norm": ("layers", "embed"),
+            "wqkv": ("layers", "embed", "heads_qkv"),
+            "wo": ("layers", "heads_qkv", "embed"),
+        }} if cfg.attn_period else {}),
+    }
 
 
 def init_mamba(cfg: MambaConfig, seed: int = 0, device=None):
@@ -231,12 +255,15 @@ def _remat(fn, cfg: MambaConfig):
                              preserve_rng_state=False)
 
 
-def mamba_forward(params, tokens: torch.Tensor, cfg: MambaConfig
-                  ) -> torch.Tensor:
+def mamba_forward(params, tokens: torch.Tensor, cfg: MambaConfig, *,
+                  mesh: Any = None, rules=None) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) in f32. The sequence is
     right-padded to a multiple of ``cfg.chunk`` (a causal model's outputs
     at real positions cannot see the pad) and cut back after the final
-    norm. The lm_head product is in the model dtype, then cast to f32."""
+    norm. The lm_head product is in the model dtype, then cast to f32.
+    ``mesh`` and ``rules`` are accepted for signature parity with the
+    other families and ignored, as in the reference."""
+    del mesh, rules
     S = tokens.shape[1]
     pad = (-S) % cfg.chunk
     if pad:
@@ -264,9 +291,12 @@ def mamba_forward(params, tokens: torch.Tensor, cfg: MambaConfig
     return (x @ params["lm_head"]).float()
 
 
-def mamba_lm_loss(params, batch, cfg: MambaConfig) -> torch.Tensor:
+def mamba_lm_loss(params, batch, cfg: MambaConfig, *, mesh: Any = None,
+                  rules=None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32 (the trainer's loss_fn
-    contract): the model reads tokens[:, :-1] and predicts tokens[:, 1:]."""
+    contract): the model reads tokens[:, :-1] and predicts tokens[:, 1:].
+    ``mesh`` and ``rules`` are ignored, as in ``mamba_forward``."""
+    del mesh, rules
     tokens = batch["tokens"]
     logits = mamba_forward(params, tokens[:, :-1], cfg)
     logp = torch.log_softmax(logits, dim=-1)

@@ -14,8 +14,8 @@ matmuls, which is IEEE f32 at PyTorch's default; the library's f32
 convolution on the card runs in TF32 at its own default.
 ``padding="SAME"`` is reckoned as XLA does and applied with ``F.pad``
 first: at stride 2 on an even input it pads less before than after,
-which ``conv2d``'s symmetric ``padding`` cannot express. Sharding axes (``resnet_param_axes``) belong to the multi-device
-plane and are not ported.
+which ``conv2d``'s symmetric ``padding`` cannot express.
+``resnet_param_axes`` replicates every leaf, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .._private.device import DeviceLike, resolve_device
-from .._private.tree import tree_leaves
+from .._private.tree import tree_leaves, tree_map
 from ..ops.quant import logits_matmul
 
 
@@ -52,6 +52,12 @@ RESNET_CONFIGS: Dict[str, ResNetConfig] = {
     "resnet18": ResNetConfig(),
     "resnet34": ResNetConfig(depths=(3, 4, 6, 3)),
 }
+
+
+def resnet_param_axes(params):
+    """Logical axes: every leaf replicated (models this size are pure
+    data-parallel; the train step shards the batch)."""
+    return tree_map(lambda _: (), params)
 
 
 def init_resnet(cfg: ResNetConfig, seed: int = 0, in_channels: int = 3,

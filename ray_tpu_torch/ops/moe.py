@@ -8,7 +8,10 @@ takes ``moe_mlp_dense``, the exact drop-free mixture: every expert on
 every token in f32, weighted by the renormalised top-k gates.
 
 Plain PyTorch: the reference runs these einsums through XLA, with no
-Pallas kernel. One device, no mesh: ``csl`` is accepted and ignored.
+Pallas kernel. On a mesh (``x`` a DTensor) the routing runs on every
+rank over all tokens, as a plain computation on the gathered inputs
+(DTensor has no sharding rule for its one-hot and cumsum), and ``csl``
+pins the expert-major buffers to the "expert" axis, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = ["moe_dispatch", "moe_mlp", "moe_mlp_dense", "moe_mlp_oracle"]
 
@@ -80,23 +84,35 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     """SwiGLU expert MLP over a routed, capacity-capped token subset.
 
     x (B, S, D); router_w (D, E); w_gate/w_up (E, D, M); w_down (E, M, D).
+    ``csl``: optional sharding-constraint fn (tensor, logical_axes) ->
+    tensor for the expert-major buffers.
     Returns (out (B, S, D) in x's dtype, aux_loss f32 scalar)."""
-    del csl
     B, S, D = x.shape
     E = router_w.shape[-1]
     T = B * S
     xt = x.reshape(T, D)
-    gates = _router_gates(xt, router_w)
     capacity = max(int(top_k * T / E * capacity_factor), 1)
     capacity = -(-capacity // 8) * 8
-    dispatch, combine, aux = moe_dispatch(gates, top_k, capacity)
+    if isinstance(xt, DTensor):
+        mesh = xt.device_mesh
+        gates = _router_gates(xt.full_tensor(), router_w.full_tensor())
+        dispatch, combine, aux = (
+            DTensor.from_local(t, mesh, [Replicate()] * mesh.mesh.ndim)
+            for t in moe_dispatch(gates, top_k, capacity))
+    else:
+        gates = _router_gates(xt, router_w)
+        dispatch, combine, aux = moe_dispatch(gates, top_k, capacity)
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
 
     expert_in = torch.einsum("tec,td->ecd", dispatch, xt)
+    if csl is not None:
+        expert_in = csl(expert_in, ("expert", None, "embed"))
     g = torch.einsum("ecd,edm->ecm", expert_in, w_gate)
     u = torch.einsum("ecd,edm->ecm", expert_in, w_up)
     expert_out = torch.einsum("ecm,emd->ecd", F.silu(g) * u, w_down)
+    if csl is not None:
+        expert_out = csl(expert_out, ("expert", None, "embed"))
     out = torch.einsum("tec,ecd->td", combine, expert_out)
     return out.reshape(B, S, D), aux
 

@@ -1,9 +1,12 @@
-"""Training on one device: the train-step factory and AdamW with optax's
-semantics (counterpart of ``ray_tpu/train/step.py``)."""
+"""Training: the train-step factory (one device, or a mesh), AdamW with
+optax's semantics, and a gang's process-group bring-up (counterpart of
+``ray_tpu/train/step.py`` and of ``worker_group.py``'s bring-up)."""
 
 from .optim import AdamState, AdamW, adamw
 from .step import TrainState, make_eval_step, make_train_step
 from .telemetry import estimate_flops_per_token
+from .worker_group import init_torch_distributed
 
 __all__ = ["AdamState", "AdamW", "TrainState", "adamw",
-           "estimate_flops_per_token", "make_eval_step", "make_train_step"]
+           "estimate_flops_per_token", "init_torch_distributed", "make_eval_step",
+           "make_train_step"]

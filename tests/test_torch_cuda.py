@@ -1237,3 +1237,35 @@ def test_tiny_server_on_card_equals_cpu(gen, tmp_path):
         outs[dev] = asyncio.run(go())
     assert outs["cuda"] == outs["cpu"]
     assert flash_attention.launches > 0 and paged_decode_attention.launches > 0
+
+
+def test_world_one_nccl_collectives_on_card(gen, tmp_path):
+    """build_mesh(MeshSpec()) in a process with no group makes a world-1
+    NCCL group; every collective, symbolic and eager, f32 and bf16, is its
+    input bit for bit (a spawned process keeps the group out of this
+    one)."""
+    import torch_parallel_peer
+
+    got = torch_parallel_peer.run_once(
+        1, tmp_path, torch_parallel_peer.card_collectives)[0]
+    assert got["backend"] == "nccl" and got["world"] == 1
+    assert len(got["equal"]) == 34
+    assert [k for k, ok in got["equal"].items() if not ok] == []
+
+
+def test_tiny_step_through_a_world_one_mesh_equals_no_mesh_on_card(
+        gen, tmp_path):
+    """A 2-layer f32 step through make_train_step(mesh=MeshSpec()) on the
+    card gives the step without a mesh, bit for bit: at world size 1
+    DTensor runs the same local ops."""
+    import numpy as np
+
+    import torch_parallel_peer
+    from ray_tpu_torch._private.tree import tree_leaves
+
+    got = torch_parallel_peer.run_once(
+        1, tmp_path, torch_parallel_peer.card_mesh_train)[0]
+    assert got["mesh"]["metrics"] == got["plain"]["metrics"]
+    for a, b in zip(tree_leaves(got["mesh"]["params"]),
+                    tree_leaves(got["plain"]["params"]), strict=True):
+        assert np.array_equal(a, b)

@@ -315,3 +315,66 @@ def test_server_entry_points_raise_without_a_card(monkeypatch):
     server = LLMServer("tiny", device="cpu", engine_config=dict(
         max_num_seqs=1, page_size=4, num_pages=32, max_seq_len=32))
     assert server.engine.device == torch.device("cpu")
+
+
+def test_the_walk_covers_the_multi_device_plane():
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.parallel", "ray_tpu_torch.parallel.mesh",
+              "ray_tpu_torch.parallel.sharding",
+              "ray_tpu_torch.parallel.collectives",
+              "ray_tpu_torch.parallel.multislice",
+              "ray_tpu_torch.parallel.pipeline",
+              "ray_tpu_torch.ops.ring_attention",
+              "ray_tpu_torch.train.worker_group", "ray_tpu_torch.exceptions"):
+        assert m in mods, m
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    list((PKG / "parallel").rglob("*.py"))
+    + [PKG / "ops" / "ring_attention.py", PKG / "train" / "worker_group.py"]))
+def test_the_multi_device_plane_imports_torch_stdlib_and_numpy(path):
+    """Its modules import torch, the stdlib, numpy and the port: no other
+    third-party package."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert (top in ("torch", "numpy", "__future__")
+                    or top in sys.stdlib_module_names), f"{path} imports {n}"
+
+
+def test_mesh_entry_points_raise_without_a_card(monkeypatch):
+    """With no card, the mesh, the multislice mesh, the topology, the
+    trainer on a mesh and the gang's bring-up raise naming device='cpu'
+    when the caller leaves the device to them; no group is made."""
+    import types
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import lm_loss, param_logical_axes
+    from ray_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                        build_multislice_mesh, local_mesh,
+                                        slice_topology)
+    from ray_tpu_torch.train import (adamw, init_torch_distributed,
+                                     make_train_step)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: build_mesh(MeshSpec()), lambda: local_mesh(),
+                 lambda: slice_topology(),
+                 lambda: build_multislice_mesh({"dp": 1}),
+                 lambda: make_train_step(
+                     lambda p, b: lm_loss(p, b, TINY), adamw(1e-3),
+                     mesh=object(), param_axes=param_logical_axes(TINY)),
+                 lambda: init_torch_distributed(types.SimpleNamespace(
+                     coordinator_address="localhost:1", world_size=2,
+                     rank=0))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not dist.is_initialized()

@@ -699,16 +699,13 @@ def test_kernel_library_name_follows_sources_headers_and_flags(
 
 
 def test_the_port_exports_every_op_of_the_reference():
-    """Every name in ray_tpu.ops.__all__ is in the port's, but two:
-    ``ring_attention``, the multi-device plane's sequence-parallel
-    attention, which is still to be ported (ROADMAP Queue 1), and
+    """Every name in ray_tpu.ops.__all__ is in the port's, but
     ``flash_attention_tpu``, the reference's Pallas kernel, whose
     counterpart is ``flash_attention``. The quant ops come along."""
     import ray_tpu.ops as jops
     import ray_tpu_torch.ops as tops
 
-    not_ported = {"ring_attention": None,
-                  "flash_attention_tpu": "flash_attention"}
+    not_ported = {"flash_attention_tpu": "flash_attention"}
     assert set(jops.__all__) - set(tops.__all__) == set(not_ported)
     for name in tops.__all__:
         assert hasattr(tops, name), name
