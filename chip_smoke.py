@@ -101,6 +101,22 @@ Phases, one JSON line each on stdout:
   8. timing  - kernel, plain-version and library times, and the bound;
                the three flash kernels also at CLIP's D=64 vision and text
                shapes.
+  parallel4 (not in the default run; four cards, `python3 chip_smoke.py
+     parallel4`) - the multi-device plane across four cards over NCCL,
+               one spawned rank a card joined by init_torch_distributed,
+               each on its own card: every collective against numpy from
+               every rank's seeded inputs (integer-valued exactly, normal
+               at 1e-5 in f32 and 2e-2 in bf16) and the bus bandwidth of
+               all-reduce, all-gather and reduce-scatter from 1 MiB to 4
+               GiB; Llama tiny (f32) under dp=4, fsdp=4, fsdp=2 tp=2 and
+               sp=2 tp=2 against the same model unsharded on card 0
+               (logits 2e-4, 2 steps' losses, grad norms and params 1e-5);
+               MoE at ep=4 (1e-4) and the pipeline over 4 stages (1e-5,
+               gradients 1e-4); Llama-3-8B trained 1+3 steps on 4 x 2048
+               tokens under fsdp=4 and fsdp=2 tp=2, the first loss within
+               2**-8 of card 0's mean one-card loss of the 4 sequences,
+               beside the one-card step, with a step traced on rank 0.
+               Alone, it ends with the ok line (count: the cards seen).
 A comma-separated list of phases runs only those and prints no result;
 `profile`, `profile_train` and `profile_moe` (not in the default run)
 trace, with torch.profiler, one 511-token prefill and a decode burst at
@@ -2005,6 +2021,922 @@ def phase_parallel(torch, card):
     _fresh_phase(torch)
     dist.destroy_process_group()
     return _train_counts()
+
+
+# --- the multi-device plane across four cards (parallel4) -------------------
+#
+# The rank bodies run on the card (NCCL, one card a rank) in the parallel4
+# phase and on the CPU (gloo) in tests/test_torch_parallel4.py, at a tiny
+# size, through the same functions: p4_run spawns the ranks, each joins
+# through init_torch_distributed and runs the named jobs in order.
+
+P4_WORLD = 4
+P4_COLL_SHAPE = (4, 8)          # both dims divide by the group sizes 2 and 4
+P4_F32 = dict(rtol=1e-5, atol=1e-5)    # the gloo tests' tolerances
+P4_BF16 = dict(rtol=2e-2, atol=2e-2)
+P4_GRAD = dict(rtol=1e-4, atol=1e-4)
+P4_LOGITS = dict(rtol=2e-4, atol=2e-4)
+P4_LAYOUTS = ({"dp": 4}, {"fsdp": 4}, {"fsdp": 2, "tp": 2},
+              {"sp": 2, "tp": 2})
+P4_TRAIN_LAYOUTS = ({"fsdp": 4}, {"fsdp": 2, "tp": 2})
+P4_BW_SIZES = tuple(1 << s for s in (20, 24, 28, 30, 32))  # 1 MiB..4 GiB
+P4_TRAIN_B = 4                  # the 8B step's global batch on four cards
+P4_LOSS_REL = 2 ** -8           # a bf16 rounding of the one-card loss
+
+
+def _p4_sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p4_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p4_run(world, device, jobs, timeouts):
+    """Spawn ``world`` ranks joined by ``init_torch_distributed`` over
+    ``tcp://127.0.0.1:<free port>`` (NCCL on ``device="cuda"``, gloo on
+    "cpu") that run ``jobs`` ((name, kwargs) of P4_JOBS) in order. Yields
+    (name, per-rank results) as each job ends on every rank, the first
+    being ("init", ...). A rank that fails, or a job that outlasts its
+    timeout (``timeouts[name]``, s), kills every rank and raises
+    SmokeFailure."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    address = f"127.0.0.1:{p4_free_port()}"
+    procs = [ctx.Process(target=_p4_rank, daemon=True, args=(
+        r, world, address, device, jobs, out))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    done = False
+    try:
+        for name, _ in [("init", None)] + list(jobs):
+            got = [None] * world
+            deadline = time.monotonic() + timeouts.get(name, 300)
+            for _ in range(world):
+                try:
+                    rank, job, ok, value = out.get(
+                        timeout=max(deadline - time.monotonic(), 0.1))
+                except queue.Empty:
+                    raise SmokeFailure(
+                        f"parallel4 {name}: a rank did not answer within "
+                        f"{timeouts.get(name, 300)} s") from None
+                if not ok:
+                    raise SmokeFailure(
+                        f"parallel4 {job} failed on rank {rank}:\n{value}")
+                got[rank] = value
+            yield name, got
+        done = True
+    finally:
+        for p in procs:
+            if done:
+                p.join(60)
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+
+
+def _p4_rank(rank, world, address, device, jobs, out):
+    import traceback
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = "init"
+    try:
+        from ray_tpu_torch._private.device import resolve_device
+        from ray_tpu_torch.train import init_torch_distributed
+
+        ctx = types.SimpleNamespace(coordinator_address=address,
+                                    world_size=world, rank=rank)
+        made = init_torch_distributed(ctx, device=device, timeout_s=300)
+        where = {"made": made, "backend": dist.get_backend(),
+                 "world": dist.get_world_size(),
+                 "device": str(resolve_device(device))}
+        if device == "cuda":
+            # one host: the local rank is the rank
+            where["current"] = torch.cuda.current_device()
+            if where["current"] != rank or where["device"] != f"cuda:{rank}":
+                raise RuntimeError(f"rank {rank} is on {where}, not "
+                                   f"cuda:{rank}")
+        out.put((rank, job, True, where))
+        for job, kwargs in jobs:
+            out.put((rank, job, True, P4_JOBS[job](torch, device,
+                                                   **kwargs)))
+    except Exception:
+        out.put((rank, job, False, traceback.format_exc()))
+        return
+    dist.destroy_process_group()
+
+
+def _p4_np(torch, t):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, dict):
+        return {k: _p4_np(torch, v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_p4_np(torch, v) for v in t)
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return t
+
+
+# (a) collectives ------------------------------------------------------------
+
+def p4_coll_input(rank, kind):
+    """Rank ``rank``'s (4, 8) input: integer-valued in [-3, 3] (every
+    reduction of four exact in bf16 and f32) or standard normal."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + rank + (0 if kind == "int" else 100))
+    if kind == "int":
+        return rng.integers(-3, 4, P4_COLL_SHAPE).astype(np.float32)
+    return rng.standard_normal(P4_COLL_SHAPE).astype(np.float32)
+
+
+# (mesh spec, axis, the ranks of each group in group order); rank r's
+# group is the one holding r
+P4_COLL_MESHES = (
+    ({"dp": 4}, "dp", ((0, 1, 2, 3),)),
+    ({"dp": 2, "tp": 2}, "tp", ((0, 1), (2, 3))),
+    ({"dp": 2, "tp": 2}, ("dp", "tp"), ((0, 1, 2, 3),)),
+)
+P4_SYMBOLIC = ("allreduce_sum", "allreduce_mean", "allreduce_max",
+               "allreduce_min", "allreduce_prod", "allgather",
+               "allgather_untiled_1", "reducescatter_sum_1",
+               "reducescatter_mean_1", "broadcast_last", "alltoall_1_0",
+               "send_1", "recv_1")
+P4_EAGER = ("allreduce_sum", "allreduce_mean", "allreduce_max",
+            "allreduce_min", "allreduce_prod", "allgather",
+            "reducescatter_sum", "reducescatter_mean", "broadcast_last",
+            "shift_1")
+
+
+def _p4_symbolic(par, axis, n):
+    return {
+        "allreduce_sum": lambda s: par.allreduce(s, axis, "sum"),
+        "allreduce_mean": lambda s: par.allreduce(s, axis, "mean"),
+        "allreduce_max": lambda s: par.allreduce(s, axis, "max"),
+        "allreduce_min": lambda s: par.allreduce(s, axis, "min"),
+        "allreduce_prod": lambda s: par.allreduce(s, axis, "prod"),
+        "allgather": lambda s: par.allgather(s, axis),
+        "allgather_untiled_1": lambda s: par.allgather(
+            s, axis, concat_axis=1, tiled=False),
+        "reducescatter_sum_1": lambda s: par.reducescatter(
+            s, axis, scatter_axis=1),
+        "reducescatter_mean_1": lambda s: par.reducescatter(
+            s, axis, scatter_axis=1, op="mean"),
+        "broadcast_last": lambda s: par.broadcast(s, axis, root=n - 1),
+        "alltoall_1_0": lambda s: par.alltoall(s, axis, split_axis=1,
+                                               concat_axis=0),
+        "send_1": lambda s: par.send(s, axis, shift=1),
+        "recv_1": lambda s: par.recv(s, axis, shift=1)}
+
+
+def _p4_eager(group, n):
+    return {
+        **{f"allreduce_{op}": (lambda s, op=op: group.allreduce(s, op))
+           for op in ("sum", "mean", "max", "min", "prod")},
+        "allgather": group.allgather,
+        "reducescatter_sum": group.reducescatter,
+        "reducescatter_mean": lambda s: group.reducescatter(s, op="mean"),
+        "broadcast_last": lambda s: group.broadcast(s, root=n - 1),
+        "shift_1": lambda s: group.shift(s, shift=1)}
+
+
+def p4_collectives(torch, device):
+    """Every symbolic op (in rank_region) over each P4_COLL_MESHES axis,
+    and every eager op (pgroup) over dp=4, on this rank's inputs of both
+    kinds in f32 and bf16: {key: result as f32 numpy}, key
+    "<mode>|<mesh>|<axis>|<op>|<dtype>|<kind>"."""
+    import ray_tpu_torch.parallel as par
+    from ray_tpu_torch.parallel.collectives import rank_region
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {}
+    for spec, axis, groups in P4_COLL_MESHES:
+        mesh = par.build_mesh(par.MeshSpec(**spec), device=device)
+        n = len(groups[0])
+        eager = par.pgroup(mesh, axis) if isinstance(axis, str) and \
+            spec == {"dp": 4} else None
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("int", "normal"):
+                x = torch.from_numpy(p4_coll_input(rank, kind)).to(
+                    device=device, dtype=dtype)
+                tag = f"{_p4_spec_name(spec)}|{axis}|"
+                dt = str(dtype).split(".")[-1]
+                with rank_region(mesh):
+                    for name, fn in _p4_symbolic(par, axis, n).items():
+                        out[f"symbolic|{tag}{name}|{dt}|{kind}"] = _p4_np(
+                            torch, fn(x))
+                if eager is not None:
+                    for name, fn in _p4_eager(eager, n).items():
+                        out[f"eager|{tag}{name}|{dt}|{kind}"] = _p4_np(
+                            torch, fn(x))
+        if eager is not None:
+            eager.barrier()
+            eager.barrier(timeout_s=60)
+            par.barrier(mesh, timeout_s=60)
+    _p4_sync(torch, device)
+    return out
+
+
+def _p4_spec_name(spec):
+    return ",".join(f"{k}={v}" for k, v in spec.items())
+
+
+def _p4_round(x, dtype):
+    import numpy as np
+    import torch
+
+    if dtype == "float32":
+        return x.astype(np.float64)
+    return torch.from_numpy(x).bfloat16().double().numpy()
+
+
+def p4_collectives_expected(world=P4_WORLD):
+    """What each rank's p4_collectives must give, computed with numpy in
+    f64 from every rank's inputs (rounded to the dtype first): {rank:
+    {key: array}}."""
+    import numpy as np
+
+    want = {r: {} for r in range(world)}
+    for spec, axis, groups in P4_COLL_MESHES:
+        for dt in ("float32", "bfloat16"):
+            for kind in ("int", "normal"):
+                xs = [_p4_round(p4_coll_input(r, kind), dt)
+                      for r in range(world)]
+                tag = f"{_p4_spec_name(spec)}|{axis}|"
+                for g in groups:
+                    n = len(g)
+                    mine = [xs[r] for r in g]
+                    total = np.sum(mine, axis=0)
+                    for i, r in enumerate(g):
+                        red = {"allreduce_sum": total,
+                               "allreduce_mean": total / n,
+                               "allreduce_max": np.max(mine, axis=0),
+                               "allreduce_min": np.min(mine, axis=0),
+                               "allreduce_prod": np.prod(mine, axis=0),
+                               "allgather": np.concatenate(mine, 0),
+                               "broadcast_last": mine[n - 1]}
+                        sym = dict(red)
+                        sym.update({
+                            "allgather_untiled_1": np.stack(mine, 1),
+                            "reducescatter_sum_1":
+                                np.split(total, n, 1)[i],
+                            "reducescatter_mean_1":
+                                np.split(total, n, 1)[i] / n,
+                            "alltoall_1_0": np.concatenate(
+                                [np.split(m, n, 1)[i] for m in mine], 0),
+                            "send_1": mine[(i - 1) % n],
+                            "recv_1": mine[(i + 1) % n]})
+                        for name in P4_SYMBOLIC:
+                            want[r][f"symbolic|{tag}{name}|{dt}|{kind}"] = \
+                                sym[name]
+                        if spec != {"dp": 4}:
+                            continue
+                        eag = dict(red)
+                        eag.update({
+                            "reducescatter_sum": np.split(total, n, 0)[i],
+                            "reducescatter_mean":
+                                np.split(total, n, 0)[i] / n,
+                            "shift_1": mine[(i - 1) % n]})
+                        for name in P4_EAGER:
+                            want[r][f"eager|{tag}{name}|{dt}|{kind}"] = \
+                                eag[name]
+    return want
+
+
+def p4_collectives_errors(got, want):
+    """Checks of every rank's results: integer-valued inputs exactly,
+    normal ones at P4_F32 / P4_BF16. Returns (checked, failures)."""
+    import numpy as np
+
+    failures, checked = [], 0
+    for r, res in enumerate(got):
+        if set(res) != set(want[r]):
+            failures.append((r, "keys", sorted(set(res) ^ set(want[r]))))
+            continue
+        for key, w in want[r].items():
+            g = np.asarray(res[key], np.float64)
+            checked += 1
+            if g.shape != w.shape:
+                failures.append((r, key, "shape", g.shape, w.shape))
+            elif key.endswith("|int"):
+                if not np.array_equal(g, w):
+                    failures.append((r, key, float(np.abs(g - w).max())))
+            else:
+                tol = P4_F32 if "|float32|" in key else P4_BF16
+                if not np.allclose(g, w, **tol):
+                    failures.append((r, key, float(np.abs(g - w).max())))
+    return checked, failures
+
+
+def p4_bandwidth(torch, device, sizes=P4_BW_SIZES, iters=(20, 5)):
+    """Bus bandwidth of all-reduce, all-gather and reduce-scatter of bf16
+    over dp=4, by NCCL's own convention (size: the all-reduce's buffer,
+    the all-gather's output, the reduce-scatter's input; bus bytes:
+    2(n-1)/n of it for all-reduce, (n-1)/n for the others), each through
+    the mesh's process group directly and through the port's pgroup
+    (which adds its copies). Device time by CUDA events on the card; the
+    host clock on the CPU. ``iters``: timed calls below 256 MiB and from
+    it."""
+    import ray_tpu_torch.parallel as par
+
+    import torch.distributed as dist
+
+    mesh = par.build_mesh(par.MeshSpec(dp=P4_WORLD), device=device)
+    group, eager = mesh.get_group("dp"), par.pgroup(mesh, "dp")
+    n = P4_WORLD
+    cuda = torch.device(device).type == "cuda"
+    rows = []
+    for size in sizes:
+        reps = iters[0] if size < (1 << 28) else iters[1]
+        elems = size // 2
+        full = torch.ones(elems, dtype=torch.bfloat16, device=device)
+        part = torch.ones(elems // n, dtype=torch.bfloat16, device=device)
+        calls = {
+            "allreduce": (lambda: dist.all_reduce(full, group=group),
+                          lambda: eager.allreduce(full), 2 * (n - 1) / n),
+            "allgather": (lambda: dist.all_gather_into_tensor(
+                full, part, group=group), lambda: eager.allgather(part),
+                (n - 1) / n),
+            "reducescatter": (lambda: dist.reduce_scatter_tensor(
+                part, full, group=group), lambda: eager.reducescatter(full),
+                (n - 1) / n)}
+        for op, (raw, port, bus) in calls.items():
+            row = {"op": op, "bytes": size, "reps": reps}
+            for which, fn in (("nccl", raw), ("port", port)):
+                fn()
+                _p4_sync(torch, device)
+                dist.barrier(group=group)
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(reps):
+                        fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms = start.elapsed_time(end) / reps
+                else:
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    ms = (time.perf_counter() - t0) * 1e3 / reps
+                row[f"{which}_ms"] = ms
+                row[f"{which}_busbw_gbs"] = size * bus / (ms / 1e3) / 1e9
+            rows.append(row)
+        del full, part
+        if cuda:
+            torch.cuda.empty_cache()
+    return rows
+
+
+# (b) the four-rank layouts of a small f32 Llama ----------------------------
+
+def p4_tiny_data(torch):
+    """The layouts' tokens (B=4, S=32) and two training batches (B=4,
+    S=24, the second masked), from seeds."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, 256, (4, 32)).astype(np.int64)
+    batches = []
+    for i in range(2):
+        b = {"tokens": np.random.default_rng(36 + i).integers(
+            0, 256, (4, 24)).astype(np.int64)}
+        if i == 1:
+            mask = np.ones((4, 24), np.int64)
+            mask[0, 14:] = 0
+            b["mask"] = mask
+        batches.append(b)
+    return tokens, batches
+
+
+def p4_layout(torch, device, spec=None):
+    """Llama ``tiny`` (f32, seed 0) under ``spec`` (unsharded with None):
+    its logits on p4_tiny_data's tokens, then 2 steps of adamw(1e-3):
+    the losses and grad norms, and the params after; unsharded, also the
+    first step's gradients."""
+    from ray_tpu_torch._private.tree import tree_map
+    from ray_tpu_torch.models import (LLAMA_CONFIGS, forward, init_params,
+                                      lm_loss, param_logical_axes,
+                                      params_to_numpy)
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import distribute_pytree
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    cfg = LLAMA_CONFIGS["tiny"]
+    tokens, batches = p4_tiny_data(torch)
+    # drawn on the CPU: a card's generator draws other values
+    params = tree_map(lambda t: t.to(device),
+                      init_params(cfg, seed=0, device="cpu"))
+    mesh = (build_mesh(MeshSpec(**spec), device=device) if spec else None)
+    tok = torch.from_numpy(tokens).to(device)
+    with torch.no_grad():
+        if mesh is None:
+            logits = forward(params, tok, cfg)
+        else:
+            logits = forward(distribute_pytree(
+                params, param_logical_axes(cfg), mesh), tok, cfg, mesh=mesh)
+    grad1 = None
+    if mesh is None:
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        lm_loss(p, {k: torch.from_numpy(v).to(device)
+                    for k, v in batches[0].items()}, cfg).backward()
+        grad1 = params_to_numpy(tree_map(lambda t: t.grad, p))
+    kw = ({} if mesh is None else
+          {"mesh": mesh, "param_axes": param_logical_axes(cfg)})
+    init_fn, step_fn, place = make_train_step(
+        lambda p, b: lm_loss(p, b, cfg, mesh=mesh), adamw(1e-3),
+        device=device, **kw)
+    state = init_fn(params)
+    metrics = []
+    for b in batches:
+        state, m = step_fn(state, place(b))
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    full = tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, state.params)
+    return {"logits": _p4_np(torch, logits), "metrics": metrics,
+            "params": params_to_numpy(full), "grad1": grad1}
+
+
+# (c) MoE at ep=4 and the pipeline over four stages --------------------------
+
+def p4_moe_weights():
+    """x (4, 16, 8), router (8, 4), gate, up (4, 8, 16), down (4, 16, 8):
+    4 experts, one a rank at ep=4."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return (f(4, 16, 8), f(8, 4) * 0.1, f(4, 8, 16) * 0.2,
+            f(4, 8, 16) * 0.2, f(4, 16, 8) * 0.2)
+
+
+def p4_moe(torch, device, sharded=True):
+    """moe_mlp on MeshSpec(ep=4) (experts over ep, tokens replicated,
+    ``csl`` the constraint), or unsharded; and moe_mlp_oracle."""
+    import functools
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.ops.moe import moe_mlp, moe_mlp_oracle
+    from ray_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                        with_sharding_constraint_logical)
+    from ray_tpu_torch.parallel.mesh import active_mesh
+    from ray_tpu_torch.parallel.sharding import placements_for
+
+    arrays = [torch.from_numpy(a).to(device) for a in p4_moe_weights()]
+    kw = {"top_k": 2, "capacity_factor": 8.0}
+    if not sharded:
+        out, aux = moe_mlp(*arrays, **kw)
+        return {"out": _p4_np(torch, out), "aux": float(aux),
+                "oracle": _p4_np(torch, moe_mlp_oracle(*arrays, top_k=2))}
+    mesh = build_mesh(MeshSpec(ep=P4_WORLD), device=device)
+    axes = (("batch", "seq", "embed"), ("embed", "expert"),
+            ("expert", "embed", "mlp"), ("expert", "embed", "mlp"),
+            ("expert", "mlp", "embed"))
+    placed = [distribute_tensor(t, active_mesh(mesh),
+                                placements_for(t.shape, ax, mesh))
+              for t, ax in zip(arrays, axes)]
+    csl = functools.partial(with_sharding_constraint_logical, mesh=mesh)
+    out, aux = moe_mlp(*placed, csl=csl, **kw)
+    return {"out": _p4_np(torch, out), "aux": float(_p4_np(torch, aux)),
+            "w_gate": str(tuple(placed[2].placements))}
+
+
+def p4_pipeline_data():
+    """An 8-layer tanh stack of width 16 and x (16, 16)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((8, 16, 16)) * 16 ** -0.5).astype(np.float32)
+    return ({"w": w, "b": np.zeros((8, 16), np.float32)},
+            rng.standard_normal((16, 16)).astype(np.float32))
+
+
+def _p4_tanh(params, x):
+    import torch
+
+    for i in range(params["w"].shape[0]):
+        x = torch.tanh(x @ params["w"][i] + params["b"][i])
+    return x
+
+
+def p4_pipeline(torch, device, sharded=True):
+    """The stack over pp=4 stages, 8 microbatches (or serially): the
+    output and the gradients of sum(out ** 2) for the stacked params."""
+    from ray_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                        pipeline_apply, split_stages)
+
+    params, x = p4_pipeline_data()
+    p = {k: torch.from_numpy(v).to(device).requires_grad_()
+         for k, v in params.items()}
+    xt = torch.from_numpy(x).to(device)
+    if sharded:
+        mesh = build_mesh(MeshSpec(pp=P4_WORLD), device=device)
+        out = pipeline_apply(mesh, _p4_tanh, split_stages(p, P4_WORLD), xt,
+                             microbatches=8)
+    else:
+        out = _p4_tanh(p, xt)
+    (out ** 2).sum().backward()
+    return {"out": _p4_np(torch, out),
+            "grad": {k: _p4_np(torch, t.grad) for k, t in p.items()}}
+
+
+# (d) a Llama trained 1+3 steps under a four-card layout ---------------------
+
+def p4_llama_cfg(name, **overrides):
+    import dataclasses
+
+    from ray_tpu_torch.models import LLAMA_CONFIGS
+
+    return dataclasses.replace(LLAMA_CONFIGS[name], **overrides)
+
+
+def p4_train_tokens(torch, vocab, B, S, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (B, S), generator=g, dtype=torch.int32)
+
+
+def p4_sequence_losses(torch, params, cfg, tokens):
+    """The one-device lm_loss of each sequence of ``tokens`` alone."""
+    from ray_tpu_torch.models import lm_loss
+
+    with torch.no_grad():
+        return [lm_loss(params, {"tokens": tokens[i:i + 1]}, cfg).item()
+                for i in range(tokens.shape[0])]
+
+
+def p4_train(torch, device, spec, cfg_name, cfg_overrides, B, S, seed=7):
+    """``cfg_name`` (with ``cfg_overrides``) from ``seed``, trained by
+    make_train_step(mesh=build_mesh(MeshSpec(**spec))) with
+    adamw(3e-4, weight_decay=0.1) on a global batch of B sequences of S
+    tokens: one warm-up step and 3 timed ones (step ms), the launches of
+    the timed steps, the peak; on the card, one more step, traced on rank
+    0 (device time split by kernel family, busy share)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import init_params, lm_loss, param_logical_axes
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = p4_llama_cfg(cfg_name, **cfg_overrides)
+    if cuda:
+        _fresh_phase(torch)
+    t0 = time.perf_counter()
+    mesh = build_mesh(MeshSpec(**spec), device=device)
+    init_fn, step_fn, place = make_train_step(
+        lambda p, b: lm_loss(p, b, cfg, mesh=mesh),
+        adamw(3e-4, weight_decay=0.1), device=device, mesh=mesh,
+        param_axes=param_logical_axes(cfg))
+    state = init_fn(init_params(cfg, seed=seed, device=device))
+    batch = place({"tokens": p4_train_tokens(torch, cfg.vocab, B, S, seed)})
+    _p4_sync(torch, device)
+    init_s = time.perf_counter() - t0
+    state, m = step_fn(state, batch)
+    losses, norms = [m["loss"].item()], [m["grad_norm"].item()]
+    _zero_counts()
+    step_ms = []
+    for _ in range(3):
+        _p4_sync(torch, device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        _p4_sync(torch, device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    out = {"spec": spec, "init_s": init_s, "loss": losses,
+           "grad_norm": norms, "step_ms": step_ms, "launches": _train_counts(),
+           "step": int(m["step"])}
+    if cuda:
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["card_mem_gb"] = (torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory / 1e9)
+
+        def one():
+            nonlocal state
+            state, _ = step_fn(state, batch)
+
+        if dist.get_rank() == 0:
+            window, prof = _profile_window(torch, one)
+            out["trace"] = {**window, "split_ms": _p4_split(prof),
+                            "flash": _flash_split(prof)}
+        else:
+            one()
+            _p4_sync(torch, device)
+    del state, batch, m
+    return out
+
+
+def _p4_split(prof):
+    """A traced window's device ms by family: NCCL kernels, GEMMs, the
+    three flash kernels, the rest. The device-side ``nccl:*`` ranges
+    (one a collective, spanning its kernel) and the trainer's ranges are
+    not kernels and are left out."""
+    from torch.autograd import DeviceType
+
+    flash = tuple(n for names in KERNEL_NAMES.values() for n in names)
+    split = {"nccl": 0.0, "gemm": 0.0, "flash": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith(
+                ("train.", "grpo.", "nccl:")):
+            continue
+        name = e.name.lower()
+        fam = ("nccl" if "nccl" in name else
+               "flash" if any(f in e.name for f in flash) else
+               "gemm" if any(w in name for w in GEMM_WORDS) else "other")
+        split[fam] += (e.time_range.end - e.time_range.start) / 1e3
+    return split
+
+
+P4_JOBS = {"collectives": p4_collectives, "bandwidth": p4_bandwidth,
+           "layout": p4_layout, "moe": p4_moe, "pipeline": p4_pipeline,
+           "train": p4_train}
+
+
+P4_TIMEOUTS = {"init": 240, "collectives": 240, "bandwidth": 240,
+               "layout": 300, "moe": 180, "pipeline": 180, "train": 600}
+
+
+def _p4_max_err(got, want):
+    """The largest |got - want| over two equal trees of arrays, or inf
+    where their structure or a shape differs."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return math.inf
+        return max([_p4_max_err(got[k], want[k]) for k in want] or [0.0])
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if g.shape != w.shape:
+        return math.inf
+    return float(np.abs(g - w).max()) if g.size else 0.0
+
+
+def _p4_close(got, want, tol):
+    """Whether two equal trees of arrays agree within ``tol``."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and set(got) == set(want)
+                and all(_p4_close(got[k], want[k], tol) for k in want))
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return g.shape == w.shape and bool(np.allclose(g, w, **tol))
+
+
+# Adam's first update of an element is lr * g / (|g| + eps): lr * sign(g)
+# wherever |g| is well above eps = 1e-8, so there the params after two
+# steps hold the gloo tests' 1e-5. Where the unsharded gradient is at the
+# rounding level of its sum (below P4_GRAD_FLOOR), another summation order
+# (the sharded one) moves the element by another fraction of lr; there the
+# bound is Adam's step, P4_ADAM_MOVE. ray_tpu's own sharded step parts from
+# its unsharded one the same way (sp=2, tp=2: one element of tiny, 3.2e-5).
+P4_GRAD_FLOOR = 1e-6
+P4_ADAM_MOVE = 4e-3             # 2 steps of at most 2 lr (lr 1e-3)
+
+
+def _p4_params_check(got, want, grad1):
+    """(ok, max error where |grad| >= P4_GRAD_FLOOR, elements below the
+    floor that part by more than 1e-5, their largest difference)."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return False, math.inf, 0, math.inf
+        parts = [_p4_params_check(got[k], want[k], grad1[k]) for k in want]
+        return (all(p[0] for p in parts), max(p[1] for p in parts),
+                sum(p[2] for p in parts), max(p[3] for p in parts))
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if g.shape != w.shape:
+        return False, math.inf, 0, math.inf
+    big = np.abs(np.asarray(grad1)) >= P4_GRAD_FLOOR
+    diff = np.abs(g - w)
+    held = np.isclose(g, w, **P4_F32)
+    noisy = ~big & ~held
+    ok = bool(held[big].all()) and bool((diff[~big] <= P4_ADAM_MOVE).all())
+    return (ok, float(diff[big].max()) if big.any() else 0.0,
+            int(noisy.sum()), float(diff[noisy].max()) if noisy.any() else 0.0)
+
+
+def p4_layout_errors(got, want):
+    """Each rank's logits (P4_LOGITS), losses and grad norms (P4_F32) and
+    params after 2 steps (P4_F32 where the first gradient is above the
+    rounding floor, P4_ADAM_MOVE below it) against the unsharded run:
+    (ok, max errors and the count of elements at the floor that part)."""
+    errs = {"logits": 0.0, "metrics": 0.0, "params": 0.0,
+            "params_at_grad_floor": 0, "params_at_grad_floor_max": 0.0}
+    ok = True
+    for r in got:
+        p_ok, p_err, n_noisy, noisy_err = _p4_params_check(
+            r["params"], want["params"], want["grad1"])
+        errs["logits"] = max(errs["logits"],
+                             _p4_max_err(r["logits"], want["logits"]))
+        errs["metrics"] = max(errs["metrics"],
+                              _p4_max_err(r["metrics"], want["metrics"]))
+        errs["params"] = max(errs["params"], p_err)
+        errs["params_at_grad_floor"] = max(errs["params_at_grad_floor"],
+                                           n_noisy)
+        errs["params_at_grad_floor_max"] = max(
+            errs["params_at_grad_floor_max"], noisy_err)
+        ok = ok and p_ok \
+            and _p4_close(r["logits"], want["logits"], P4_LOGITS) \
+            and _p4_close(r["metrics"], want["metrics"], P4_F32)
+    return ok, errs
+
+
+def p4_moe_errors(got, want):
+    """Each rank's output against the unsharded moe_mlp and the oracle
+    (P4_GRAD, the gloo tests' 1e-4), its aux loss at 1e-5 relative."""
+    ok = all(_p4_close(r["out"], want["out"], P4_GRAD)
+             and _p4_close(r["out"], want["oracle"], P4_GRAD)
+             and abs(r["aux"] - want["aux"]) <= 1e-5 * abs(want["aux"])
+             for r in got)
+    return ok, {"out": max(_p4_max_err(r["out"], want["out"]) for r in got),
+                "aux": max(abs(r["aux"] - want["aux"]) for r in got)}
+
+
+def p4_pipeline_errors(got, want):
+    """Each rank's output (P4_F32) and gradients (P4_GRAD) against the
+    serial stack's."""
+    ok = all(_p4_close(r["out"], want["out"], P4_F32)
+             and _p4_close(r["grad"], want["grad"], P4_GRAD) for r in got)
+    return ok, {"out": max(_p4_max_err(r["out"], want["out"]) for r in got),
+                "grad": max(_p4_max_err(r["grad"], want["grad"])
+                            for r in got)}
+
+
+def _p4_cards():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()
+
+
+def phase_parallel4(torch, card):
+    """The multi-device plane across four cards over NCCL, one rank a
+    card: (a) every collective against numpy, and the bus bandwidth of
+    all-reduce, all-gather and reduce-scatter from 1 MiB to 4 GiB; (b)
+    Llama tiny (f32) under dp=4, fsdp=4, fsdp=2 tp=2 and sp=2 tp=2
+    against the same model unsharded on card 0; (c) MoE at ep=4 and the
+    pipeline over 4 stages against their unsharded runs; (d) Llama-3-8B
+    (bf16, seed 7, remat full, adamw(3e-4, weight_decay=0.1)) trained 1+3
+    steps on a global batch of 4 x 2048 tokens under fsdp=4 and fsdp=2
+    tp=2, against card 0's one-card losses of the same weights on each
+    sequence and its one-card step (the train phase's, run here)."""
+    from ray_tpu_torch.ops import _kernels
+
+    n = torch.cuda.device_count()
+    require(n >= P4_WORLD,
+            f"parallel4 needs {P4_WORLD} cards, this machine has {n}")
+    cards = _p4_cards()
+    # how the cards are joined: nvidia-smi's matrix and link status where
+    # the machine lets it read them, and CUDA's peer access
+    links = {}
+    for args in (("topo", "-m"), ("nvlink", "--status")):
+        r = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                           text=True, timeout=60)
+        links[" ".join(args)] = (r.stdout + r.stderr).strip().splitlines()
+    emit({"phase": "parallel4", "part": "topology", "cards": n,
+          "nvidia_smi": cards, "links": links,
+          "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j)
+                           for j in range(n)] for i in range(n)]})
+    # every rank loads the libraries this builds
+    for name in _kernels.build_all():
+        _kernels.lib(name)
+
+    # the unsharded runs on card 0
+    t0 = time.perf_counter()
+    want_coll = p4_collectives_expected()
+    ref_layout = p4_layout(torch, "cuda")
+    ref_moe = p4_moe(torch, "cuda", sharded=False)
+    ref_pipe = p4_pipeline(torch, "cuda", sharded=False)
+    _fresh_phase(torch)
+    cfg, state, step_fn, batch = _build_8b_trainer(torch)
+    seqs = p4_train_tokens(torch, cfg.vocab, P4_TRAIN_B, TRAIN_S).cuda()
+    seq_losses = p4_sequence_losses(torch, state.params, cfg, seqs)
+    state, losses, norms, step_ms, tok_s, counts, m = _timed_steps(
+        torch, step_fn, state, batch, TRAIN_B * TRAIN_S)
+    _check_training(torch, losses, norms, counts,
+                    _want_train_counts(cfg.n_layers), m)
+    one_card = {"loss": losses, "grad_norm": norms, "step_ms": step_ms,
+                "mean_step_ms": sum(step_ms) / 3, "tok_s": tok_s,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ref_loss = sum(seq_losses) / len(seq_losses)
+    emit({"phase": "parallel4", "part": "one_card", "model": "llama3-8b",
+          "batch": TRAIN_B, "seq": TRAIN_S, **one_card,
+          "sequence_losses": seq_losses, "mean_sequence_loss": ref_loss,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": cards})
+    del state, batch, m, step_fn
+    _fresh_phase(torch)
+
+    jobs = ([("collectives", {}), ("bandwidth", {})]
+            + [("layout", {"spec": s}) for s in P4_LAYOUTS]
+            + [("moe", {}), ("pipeline", {})]
+            + [("train", {"spec": s, "cfg_name": "8b", "cfg_overrides": {},
+                          "B": P4_TRAIN_B, "S": TRAIN_S})
+               for s in P4_TRAIN_LAYOUTS])
+    layouts = iter(P4_LAYOUTS)
+    t_gang = time.perf_counter()
+    gang = p4_run(P4_WORLD, "cuda", jobs, P4_TIMEOUTS)
+    try:
+        for name, got in gang:
+            line = {"phase": "parallel4", "part": name, "nvidia_smi": cards,
+                    "seconds": time.perf_counter() - t_gang}
+            if name == "init":
+                emit({**line, "ranks": got})
+            elif name == "collectives":
+                checked, failures = p4_collectives_errors(got, want_coll)
+                emit({**line, "checked": checked, "failures": failures[:20],
+                      "tolerance": {"int": "exact", "float32": P4_F32,
+                                    "bfloat16": P4_BF16}})
+                require(not failures and checked,
+                        f"collectives differ: {failures[:5]}")
+            elif name == "bandwidth":
+                emit({**line, "rank0": got[0],
+                      "min_nccl_busbw_gbs": {
+                          f"{row['op']}_{row['bytes']}": min(
+                              r[i]["nccl_busbw_gbs"] for r in got)
+                          for i, row in enumerate(got[0])}})
+            elif name == "layout":
+                spec = next(layouts)
+                ok, errs = p4_layout_errors(got, ref_layout)
+                emit({**line, "spec": spec, "ok": ok, "max_abs_err": errs,
+                      "loss": got[0]["metrics"],
+                      "unsharded_loss": ref_layout["metrics"],
+                      "tolerance": {"logits": P4_LOGITS, "step": P4_F32}})
+                require(ok, f"layout {spec} differs from unsharded: {errs}")
+            elif name == "moe":
+                ok, errs = p4_moe_errors(got, ref_moe)
+                emit({**line, "ok": ok, "max_abs_err": errs,
+                      "w_gate": got[0]["w_gate"],
+                      "tolerance": {"out": P4_GRAD, "aux_rel": 1e-5}})
+                require(ok, f"MoE at ep=4 differs: {errs}")
+            elif name == "pipeline":
+                ok, errs = p4_pipeline_errors(got, ref_pipe)
+                emit({**line, "ok": ok, "max_abs_err": errs,
+                      "tolerance": {"out": P4_F32, "grad": P4_GRAD}})
+                require(ok, f"the pipeline differs: {errs}")
+            elif name == "train":
+                _p4_check_train(got, ref_loss, one_card, cfg, line)
+    finally:
+        gang.close()
+
+
+def _p4_check_train(got, ref_loss, one_card, cfg, line):
+    r0 = got[0]
+    mean_ms = sum(r0["step_ms"]) / 3
+    tok_s = P4_TRAIN_B * TRAIN_S / (mean_ms / 1e3)
+    rel = abs(r0["loss"][0] - ref_loss) / abs(ref_loss)
+    want = _want_train_counts(cfg.n_layers)
+    emit({**line, "spec": r0["spec"], "model": "llama3-8b",
+          "global_batch": P4_TRAIN_B, "seq": TRAIN_S,
+          "loss": r0["loss"], "grad_norm": r0["grad_norm"],
+          "first_loss_rel_to_one_card": rel, "one_card_mean_loss": ref_loss,
+          "step_ms": r0["step_ms"], "mean_step_ms": mean_ms,
+          "max_rank_mean_step_ms": max(sum(r["step_ms"]) / 3 for r in got),
+          "one_card_mean_step_ms": one_card["mean_step_ms"],
+          "tok_s": tok_s, "one_card_tok_s": one_card["tok_s"],
+          "scaling": tok_s / (P4_WORLD * one_card["tok_s"]),
+          "init_s": [r["init_s"] for r in got],
+          "peak_mem_gb": [r.get("peak_mem_gb") for r in got],
+          "launches": [r["launches"] for r in got],
+          "expected_launches": want, "trace": r0.get("trace")})
+    for r in got:
+        require(all(math.isfinite(x) for x in r["loss"] + r["grad_norm"]),
+                f"{r['spec']}: a loss or grad norm is not finite")
+        require(r["loss"][-1] < r["loss"][0],
+                f"{r['spec']}: the loss did not fall: {r['loss']}")
+        require(r["launches"] == want,
+                f"{r['spec']}: launches {r['launches']}, expected {want}")
+        require(r.get("peak_mem_gb", 0) < r.get("card_mem_gb", math.inf),
+                "peak exceeds the card")
+        require(r["step"] == 4, "the step counter is not 4")
+        require(r["loss"] == r0["loss"], "the ranks' losses differ")
+    require(rel <= P4_LOSS_REL,
+            f"{r0['spec']}: first loss {r0['loss'][0]} against the one-card "
+            f"mean {ref_loss} (relative {rel} > 2**-8)")
 
 
 # --- the other single-device families: MoE Llama, Mamba-2, Jamba ------------
@@ -4236,6 +5168,9 @@ def main() -> int:
         if "profile_moe" in phases:
             phase_profile_moe(torch)
             torch.cuda.empty_cache()
+        if "parallel4" in phases:
+            phase_parallel4(torch, card)
+            torch.cuda.empty_cache()
         if "timing" in phases:
             rows = phase_timing(torch, launches, max_err, clip_launches)
             emit({"kernels": [{k: r[k] for k in (
@@ -4245,7 +5180,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if phases != all_phases:
+    if phases != all_phases and phases != ["parallel4"]:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,14 +14,23 @@ import torch
 DeviceLike = Optional[Union[str, torch.device]]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the first CUDA card. Raises when a CUDA device is
-    asked for (explicitly or by default) and none is available."""
+def checked_device(device: DeviceLike = None) -> torch.device:
+    """``device`` as given (``None``: "cuda"), without choosing a card.
+    Raises when a CUDA device is asked for (explicitly or by default)
+    and none is available."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "ray_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain versions")
+    return dev
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the current CUDA card (the first one unless the
+    process chose another). Raises when a CUDA device is asked for
+    (explicitly or by default) and none is available."""
+    dev = checked_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

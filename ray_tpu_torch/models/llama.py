@@ -211,40 +211,70 @@ def _mesh_logits(x, head, mesh, rules):
         x, head)
 
 
+def _mesh_embed(table, tokens, mesh, rules):
+    """The table lookup on each rank's local tokens, the table whole on
+    every rank (its gradient leaves the region partial and is summed into
+    the table's placement). DTensor's own gather fails its backward,
+    ``aten.index_put``, on batch-sharded indices in torch 2.11."""
+    shape = (*tokens.shape, table.shape[-1])
+    spec = fit_spec(_spec_for(("batch", "seq", None), rules, mesh), shape,
+                    mesh)
+    spec = spec + (None,) * (3 - len(spec))
+    return shard_map(lambda t, i: t[i.long()], mesh, [(), spec[:2]],
+                     spec)(table, tokens)
+
+
+def _product(eq, x, w, batched=False):
+    """``torch.einsum(eq, x, w)`` for a projection: x's dims after
+    (batch, seq) contracted with w's leading ones. ``batched``: as one
+    product a batch row (bmm), for a sequence-sharded x: torch 2.11's
+    DTensor cannot view (batch, seq) as one dim when seq is sharded,
+    which einsum asks for."""
+    if not batched:
+        return torch.einsum(eq, x, w)
+    n_in = x.dim() - 2
+    w2 = w.flatten(0, n_in - 1).flatten(1)
+    out = torch.bmm(x.flatten(2),
+                    w2.unsqueeze(0).expand(x.shape[0], -1, -1))
+    return out.unflatten(-1, w.shape[n_in:])
+
+
 def _layer(x, lp, cfg: LlamaConfig, cos, sin, mesh=None, rules=None):
     csl = functools.partial(with_sharding_constraint_logical, rules=rules,
                             mesh=mesh)
+    seq_sharded = mesh is not None and axis_sizes(mesh).get("sp", 1) > 1
+    prod = functools.partial(_product, batched=seq_sharded)
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wq"]), cos, sin)
-    k = apply_rotary(torch.einsum("bsd,dhk->bshk", h, lp["wk"]), cos, sin)
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"])
+    q = apply_rotary(prod("bsd,dhk->bshk", h, lp["wq"]), cos, sin)
+    k = apply_rotary(prod("bsd,dhk->bshk", h, lp["wk"]), cos, sin)
+    v = prod("bsd,dhk->bshk", h, lp["wv"])
     if mesh is None:
         o = attention(q, k, v, causal=True)
     else:
         o = _mesh_attention(q, k, v, mesh, rules)
-    x = csl(x + torch.einsum("bshk,hkd->bsd", o, lp["wo"]),
+    x = csl(x + prod("bshk,hkd->bsd", o, lp["wo"]),
             ("batch", "seq", "embed"))
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    out, aux = _mlp(h, lp, cfg, csl if mesh is not None else None)
+    out, aux = _mlp(h, lp, cfg, csl if mesh is not None else None, prod)
     return csl(x + out, ("batch", "seq", "embed")), aux
 
 
-def _mlp(h, lp, cfg: LlamaConfig, csl=None):
+def _mlp(h, lp, cfg: LlamaConfig, csl=None, prod=_product):
     """SwiGLU, or the routed expert MLP for MoE; and the layer's f32
     load-balancing loss (None when dense)."""
     if cfg.n_experts:
         return moe_mlp(h, lp["router"], lp["w_gate"], lp["w_up"],
                        lp["w_down"], top_k=cfg.top_k,
                        capacity_factor=cfg.capacity_factor, csl=csl)
-    g = torch.einsum("bsd,dm->bsm", h, lp["w_gate"])
-    u = torch.einsum("bsd,dm->bsm", h, lp["w_up"])
+    g = prod("bsd,dm->bsm", h, lp["w_gate"])
+    u = prod("bsd,dm->bsm", h, lp["w_up"])
     if csl is not None:
         # the hidden over tp: left to DTensor, the down projection's input
         # can come out sharded three ways, whose first sharding
         # propagation takes minutes on a 3-dim mesh
         g, u = (csl(t, ("batch", "seq", "mlp")) for t in (g, u))
-    out = torch.einsum("bsm,md->bsd", torch.nn.functional.silu(g) * u,
-                       lp["w_down"])
+    out = prod("bsm,md->bsd", torch.nn.functional.silu(g) * u,
+               lp["w_down"])
     return out, None
 
 
@@ -293,14 +323,13 @@ def forward(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
                                 device=dev)
     csl = functools.partial(with_sharding_constraint_logical, rules=rules,
                             mesh=mesh)
-    table = params["embed"]
-    if mesh is not None:
+    if mesh is None:
+        x = params["embed"][tokens.long()]
+    else:
         tokens = distribute_batch(tokens, mesh, rules)
         cos, sin = _replicated(cos, mesh), _replicated(sin, mesh)
-        # the table's embed dim unsharded before the gather, as in the
-        # reference: its vocab dim stays on tp
-        table = csl(table, ("vocab", None))
-    x = csl(table[tokens.long()], ("batch", "seq", "embed"))
+        x = csl(_mesh_embed(params["embed"], tokens, mesh, rules),
+                ("batch", "seq", "embed"))
     body = _layer_body(cfg)
     aux = None
     for li in range(cfg.n_layers):

@@ -113,7 +113,13 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     expert_out = torch.einsum("ecm,emd->ecd", F.silu(g) * u, w_down)
     if csl is not None:
         expert_out = csl(expert_out, ("expert", None, "embed"))
-    out = torch.einsum("tec,ecd->td", combine, expert_out)
+    if isinstance(expert_out, DTensor):
+        # one product per expert, then the sum over the sharded experts:
+        # torch 2.11's DTensor cannot view (e, c) as one dim when e is
+        # sharded, which the fused contraction asks for
+        out = torch.einsum("tec,ecd->ted", combine, expert_out).sum(1)
+    else:
+        out = torch.einsum("tec,ecd->td", combine, expert_out)
     return out.reshape(B, S, D), aux
 
 

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from .._private.device import resolve_device
 from ..exceptions import CollectiveTimeoutError
 from .mesh import active_mesh, axis_sizes, mesh_cache
 from .sharding import Spec, spec_placements
@@ -570,12 +571,14 @@ class ProcessGroup:
         self._sync(f"shift_{shift}", timeout_s)
         return self._run(lambda s: send(s, self.axis, shift=shift), x)
 
-    def _device_sync(self):
-        dev = torch.device(self.mesh.device_type)
+    def _device_sync(self, dev: torch.device):
+        """One allreduce on ``dev`` and a wait for it: ``dev`` is resolved
+        by the caller's thread, since a thread of its own starts on the
+        first card, not on its rank's."""
         one = torch.zeros((1,), dtype=torch.float32, device=dev)
         self.allreduce(one)
         if dev.type == "cuda":
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(dev)
 
     def barrier(self, timeout_s: Optional[float] = None):
         """Synchronize the axis (and, for a named group, every
@@ -584,13 +587,14 @@ class ProcessGroup:
         CollectiveTimeoutError, naming the missing ranks when the hooks
         supply them."""
         self._sync("barrier", timeout_s)
+        dev = resolve_device(self.mesh.device_type)
         if timeout_s is None or self.group_name is not None:
-            self._device_sync()
+            self._device_sync(dev)
             return
         # no context manager: its exit would wait for the very sync the
         # timeout bounds
         ex = concurrent.futures.ThreadPoolExecutor(1)
-        fut = ex.submit(self._device_sync)
+        fut = ex.submit(self._device_sync, dev)
         try:
             fut.result(timeout_s)
         except concurrent.futures.TimeoutError:

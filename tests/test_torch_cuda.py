@@ -1269,3 +1269,25 @@ def test_tiny_step_through_a_world_one_mesh_equals_no_mesh_on_card(
     for a, b in zip(tree_leaves(got["mesh"]["params"]),
                     tree_leaves(got["plain"]["params"]), strict=True):
         assert np.array_equal(a, b)
+
+
+def test_binding_at_world_one_leaves_the_current_card(gen):
+    """init_torch_distributed at world size 1, or without an address,
+    makes no group and binds no card: the current card (the last one
+    here) stays current, and resolve_device() still gives it."""
+    import types
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.train import init_torch_distributed
+
+    last = torch.cuda.device_count() - 1
+    with torch.cuda.device(last):
+        for world, addr in ((1, "127.0.0.1:1"), (2, "")):
+            ctx = types.SimpleNamespace(coordinator_address=addr,
+                                        world_size=world, rank=0)
+            assert init_torch_distributed(ctx) is False
+            assert torch.cuda.current_device() == last
+        assert not dist.is_initialized()
+        assert resolve_device(None) == torch.device("cuda", last)

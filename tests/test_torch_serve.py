@@ -395,9 +395,17 @@ def test_pooled_pair_gives_the_mono_tokens_in_chunks(servers, params_path,
     assert st["pool"] == "decode"
     pst = asyncio.run(prefill.stats())
     assert pst["decode_steps"] == 0 and pst["prefills"] == 3
-    # ctx 4, 3 and 20 positions in 4-token pages: 1, 1 and 5 pages
-    assert [tuple(k.shape[1] for k in (c[0],)) for c in shipped] == [
-        (1,), (1,), (2,), (2,), (1,)]
+    # ctx 4, 3 and 20 positions in 4-token pages: 1, 1 and 5 pages. The
+    # three requests ship from their own executor hops, so their puts
+    # interleave in any order; a request's own puts keep theirs. A chunk
+    # is a page slice of its request's exported k, so its storage names
+    # the request: (first page, pages) per request, in put order
+    by_request = {}
+    for k, _v in shipped:
+        by_request.setdefault(k.untyped_storage().data_ptr(), []).append(
+            (k.storage_offset() // k.stride(1), k.shape[1]))
+    assert sorted(by_request.values(), key=len) == [
+        [(0, 1)], [(0, 1)], [(0, 2), (2, 2), (4, 1)]]
     after = _handoff_counts()
     assert after["serve_kv_handoff_bytes_total"] - before.get(
         "serve_kv_handoff_bytes_total", 0) == 7 * page

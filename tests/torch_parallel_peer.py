@@ -409,7 +409,7 @@ def barrier_timeouts(timeout_s):
         store.set("rank0_done", "1")
     elif rank == 1:
         store.wait(["rank0_done"])
-        pgroup(mesh, "dp")._device_sync()
+        pgroup(mesh, "dp")._device_sync(torch.device("cpu"))
     return out
 
 
