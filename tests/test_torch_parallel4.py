@@ -127,7 +127,7 @@ def test_gloo_binds_no_card(monkeypatch):
     assert "device_id" not in kw
 
 
-# --- the parallel4 bodies over 4 gloo ranks -----------------------------------
+# --- the parallel4 bodies over 4 gloo ranks ---------------------------------
 
 def _run(jobs):
     out = {}
