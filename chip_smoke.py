@@ -113,9 +113,11 @@ Phases, one JSON line each on stdout:
                (logits 2e-4, 2 steps' losses, grad norms and params 1e-5);
                MoE at ep=4 (1e-4) and the pipeline over 4 stages (1e-5,
                gradients 1e-4); Llama-3-8B trained 1+3 steps on 4 x 2048
-               tokens under fsdp=4 and fsdp=2 tp=2, the first loss within
-               2**-8 of card 0's mean one-card loss of the 4 sequences,
-               beside the one-card step, with a step traced on rank 0.
+               tokens under fsdp=4 and fsdp=2 tp=2 against the same step
+               on card 0 a sequence at a time (relative: the first loss
+               1e-4, the first grad norm 2e-3, the loss after one update
+               1e-3), beside the one-card step, with a step traced on
+               rank 0.
                Alone, it ends with the ok line (count: the cards seen).
 A comma-separated list of phases runs only those and prints no result;
 `profile`, `profile_train` and `profile_moe` (not in the default run)
@@ -2041,7 +2043,9 @@ P4_LAYOUTS = ({"dp": 4}, {"fsdp": 4}, {"fsdp": 2, "tp": 2},
 P4_TRAIN_LAYOUTS = ({"fsdp": 4}, {"fsdp": 2, "tp": 2})
 P4_BW_SIZES = tuple(1 << s for s in (20, 24, 28, 30, 32))  # 1 MiB..4 GiB
 P4_TRAIN_B = 4                  # the 8B step's global batch on four cards
-P4_LOSS_REL = 2 ** -8           # a bf16 rounding of the one-card loss
+# the 8B step on four cards against the same step on one card, relative:
+# the first loss, the first gradient's norm, the loss after one update
+P4_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-3, "loss2": 1e-3}
 
 
 def _p4_sync(torch, device):
@@ -2587,6 +2591,64 @@ def p4_sequence_losses(torch, params, cfg, tokens):
                 for i in range(tokens.shape[0])]
 
 
+def p4_one_device_step(torch, device, cfg, B, S, seed=7):
+    """The sharded trainer's first step on one device, a sequence at a
+    time: ``cfg`` from ``seed`` under make_train_step with
+    adamw(3e-4, weight_decay=0.1), the gradients of the mean of the B
+    sequences' losses summed in the params' dtype, one update. Returns
+    the sequences' losses before the update, the batch loss before and
+    after it, and the first gradient's norm (as step_fn takes it)."""
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.models import init_params, lm_loss
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    opt = adamw(3e-4, weight_decay=0.1)
+    init_fn, _, _ = make_train_step(lambda p, b: lm_loss(p, b, cfg), opt,
+                                    device=device)
+    state = init_fn(init_params(cfg, seed=seed, device=device))
+    tokens = p4_train_tokens(torch, cfg.vocab, B, S, seed).to(device)
+    seq_losses = []
+    for i in range(B):
+        loss = lm_loss(state.params, {"tokens": tokens[i:i + 1]}, cfg)
+        (loss / B).backward()
+        seq_losses.append(loss.item())
+    leaves = tree_leaves(state.params)
+    grads = [p.grad for p in leaves]
+    with torch.no_grad():
+        norm = torch.stack([
+            torch.linalg.vector_norm(g, dtype=torch.float32).square()
+            for g in grads]).sum().sqrt().item()
+        opt.update_(state.params, grads, state.opt_state)
+    for p in leaves:
+        p.grad = None
+    after = p4_sequence_losses(torch, state.params, cfg, tokens)
+    del state, grads, leaves
+    return {"sequence_losses": seq_losses,
+            "loss": [sum(seq_losses) / B, sum(after) / B],
+            "grad_norm": norm}
+
+
+def p4_train_errors(got, ref, tol):
+    """Every rank's first loss, first grad norm and second loss (after one
+    update) against ``ref`` (p4_one_device_step's), each relative to the
+    reference's and within ``tol``'s "loss", "grad_norm" and "loss2";
+    every loss and grad norm finite, the loss falling, 4 steps taken and
+    the ranks' losses equal. Returns (ok, the largest relative errors)."""
+    errs = {"loss": 0.0, "grad_norm": 0.0, "loss2": 0.0}
+    ok = True
+    for r in got:
+        for key, g, w in (("loss", r["loss"][0], ref["loss"][0]),
+                          ("grad_norm", r["grad_norm"][0], ref["grad_norm"]),
+                          ("loss2", r["loss"][1], ref["loss"][1])):
+            rel = abs(g - w) / abs(w)
+            errs[key] = max(errs[key], rel)
+            ok = ok and rel <= tol[key]
+        ok = (ok and all(math.isfinite(x) for x in r["loss"] + r["grad_norm"])
+              and r["loss"][-1] < r["loss"][0] and r["step"] == 4
+              and r["loss"] == got[0]["loss"])
+    return ok, errs
+
+
 def p4_train(torch, device, spec, cfg_name, cfg_overrides, B, S, seed=7):
     """``cfg_name`` (with ``cfg_overrides``) from ``seed``, trained by
     make_train_step(mesh=build_mesh(MeshSpec(**spec))) with
@@ -2803,8 +2865,9 @@ def phase_parallel4(torch, card):
     pipeline over 4 stages against their unsharded runs; (d) Llama-3-8B
     (bf16, seed 7, remat full, adamw(3e-4, weight_decay=0.1)) trained 1+3
     steps on a global batch of 4 x 2048 tokens under fsdp=4 and fsdp=2
-    tp=2, against card 0's one-card losses of the same weights on each
-    sequence and its one-card step (the train phase's, run here)."""
+    tp=2, against the same first step on card 0 a sequence at a time
+    (p4_one_device_step), beside the one-card step (the train phase's,
+    run here)."""
     from ray_tpu_torch.ops import _kernels
 
     n = torch.cuda.device_count()
@@ -2833,9 +2896,10 @@ def phase_parallel4(torch, card):
     ref_moe = p4_moe(torch, "cuda", sharded=False)
     ref_pipe = p4_pipeline(torch, "cuda", sharded=False)
     _fresh_phase(torch)
+    ref_step = p4_one_device_step(torch, "cuda", p4_llama_cfg("8b"),
+                                  P4_TRAIN_B, TRAIN_S)
+    _fresh_phase(torch)
     cfg, state, step_fn, batch = _build_8b_trainer(torch)
-    seqs = p4_train_tokens(torch, cfg.vocab, P4_TRAIN_B, TRAIN_S).cuda()
-    seq_losses = p4_sequence_losses(torch, state.params, cfg, seqs)
     state, losses, norms, step_ms, tok_s, counts, m = _timed_steps(
         torch, step_fn, state, batch, TRAIN_B * TRAIN_S)
     _check_training(torch, losses, norms, counts,
@@ -2843,10 +2907,9 @@ def phase_parallel4(torch, card):
     one_card = {"loss": losses, "grad_norm": norms, "step_ms": step_ms,
                 "mean_step_ms": sum(step_ms) / 3, "tok_s": tok_s,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    ref_loss = sum(seq_losses) / len(seq_losses)
     emit({"phase": "parallel4", "part": "one_card", "model": "llama3-8b",
           "batch": TRAIN_B, "seq": TRAIN_S, **one_card,
-          "sequence_losses": seq_losses, "mean_sequence_loss": ref_loss,
+          "one_card_step": {"batch": P4_TRAIN_B, **ref_step},
           "seconds": time.perf_counter() - t0, "nvidia_smi": cards})
     del state, batch, m, step_fn
     _fresh_phase(torch)
@@ -2899,21 +2962,22 @@ def phase_parallel4(torch, card):
                       "tolerance": {"out": P4_F32, "grad": P4_GRAD}})
                 require(ok, f"the pipeline differs: {errs}")
             elif name == "train":
-                _p4_check_train(got, ref_loss, one_card, cfg, line)
+                _p4_check_train(got, ref_step, one_card, cfg, line)
     finally:
         gang.close()
 
 
-def _p4_check_train(got, ref_loss, one_card, cfg, line):
+def _p4_check_train(got, ref_step, one_card, cfg, line):
     r0 = got[0]
     mean_ms = sum(r0["step_ms"]) / 3
     tok_s = P4_TRAIN_B * TRAIN_S / (mean_ms / 1e3)
-    rel = abs(r0["loss"][0] - ref_loss) / abs(ref_loss)
+    ok, errs = p4_train_errors(got, ref_step, P4_TRAIN_TOL)
     want = _want_train_counts(cfg.n_layers)
     emit({**line, "spec": r0["spec"], "model": "llama3-8b",
           "global_batch": P4_TRAIN_B, "seq": TRAIN_S,
           "loss": r0["loss"], "grad_norm": r0["grad_norm"],
-          "first_loss_rel_to_one_card": rel, "one_card_mean_loss": ref_loss,
+          "rel_err_to_one_card_step": errs, "tolerance": P4_TRAIN_TOL,
+          "one_card_step": {k: ref_step[k] for k in ("loss", "grad_norm")},
           "step_ms": r0["step_ms"], "mean_step_ms": mean_ms,
           "max_rank_mean_step_ms": max(sum(r["step_ms"]) / 3 for r in got),
           "one_card_mean_step_ms": one_card["mean_step_ms"],
@@ -2924,19 +2988,14 @@ def _p4_check_train(got, ref_loss, one_card, cfg, line):
           "launches": [r["launches"] for r in got],
           "expected_launches": want, "trace": r0.get("trace")})
     for r in got:
-        require(all(math.isfinite(x) for x in r["loss"] + r["grad_norm"]),
-                f"{r['spec']}: a loss or grad norm is not finite")
-        require(r["loss"][-1] < r["loss"][0],
-                f"{r['spec']}: the loss did not fall: {r['loss']}")
         require(r["launches"] == want,
                 f"{r['spec']}: launches {r['launches']}, expected {want}")
         require(r.get("peak_mem_gb", 0) < r.get("card_mem_gb", math.inf),
                 "peak exceeds the card")
-        require(r["step"] == 4, "the step counter is not 4")
-        require(r["loss"] == r0["loss"], "the ranks' losses differ")
-    require(rel <= P4_LOSS_REL,
-            f"{r0['spec']}: first loss {r0['loss'][0]} against the one-card "
-            f"mean {ref_loss} (relative {rel} > 2**-8)")
+    require(ok, f"{r0['spec']}: the step differs from the one-card step "
+                f"(relative {errs}, tolerance {P4_TRAIN_TOL}), or a loss "
+                f"is not finite, does not fall or differs between ranks: "
+                f"{[r['loss'] for r in got]}")
 
 
 # --- the other single-device families: MoE Llama, Mamba-2, Jamba ------------

@@ -43,7 +43,8 @@ from ..ops import apply_rotary, attention, rms_norm, rope_frequencies
 from ..ops.moe import moe_mlp
 from ..ops.quant import logits_matmul
 from ..ops.ring_attention import ring_attention
-from ..parallel.collectives import shard_map
+from ..parallel.collectives import (_mentioned, _names, allreduce,
+                                    axis_index, shard_map)
 from ..parallel.mesh import active_mesh, axis_sizes
 from ..parallel.sharding import (DEFAULT_RULES, _spec_for,
                                  distribute_batch, fit_spec,
@@ -211,17 +212,40 @@ def _mesh_logits(x, head, mesh, rules):
         x, head)
 
 
+def _vocab_lookup(table, ids, axis):
+    """Rows ``ids`` of the vocab-split ``table`` (this rank's block of
+    the vocab along ``axis``): each rank looks up the ids in its block,
+    zeros the others, and the sum over ``axis`` puts every row together
+    (Megatron's vocab-parallel embedding)."""
+    ids = ids.long()
+    if axis is None:
+        return table[ids]
+    local = ids - axis_index(axis) * table.shape[0]
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return allreduce(rows * mine[..., None].to(rows.dtype), axis)
+
+
 def _mesh_embed(table, tokens, mesh, rules):
-    """The table lookup on each rank's local tokens, the table whole on
-    every rank (its gradient leaves the region partial and is summed into
-    the table's placement). DTensor's own gather fails its backward,
+    """The table lookup on each rank's local tokens, the table's vocab
+    split as the rules split it and its embed dim whole (the reference
+    gathers from a (vocab, None) table). Its gradient leaves the region
+    partial over the other axes and is summed into the table's
+    placement. DTensor's own gather fails its backward,
     ``aten.index_put``, on batch-sharded indices in torch 2.11."""
     shape = (*tokens.shape, table.shape[-1])
     spec = fit_spec(_spec_for(("batch", "seq", None), rules, mesh), shape,
                     mesh)
     spec = spec + (None,) * (3 - len(spec))
-    return shard_map(lambda t, i: t[i.long()], mesh, [(), spec[:2]],
-                     spec)(table, tokens)
+    table_spec = fit_spec(_spec_for(("vocab", None), rules, mesh),
+                          table.shape, mesh)
+    axis = table_spec[0] if table_spec else None
+    if axis is not None and set(_names(axis)) & _mentioned(spec):
+        # tokens split over the vocab's axis: no rank has all of a row's
+        # lookups, so every rank takes the whole table
+        axis, table_spec = None, ()
+    return shard_map(functools.partial(_vocab_lookup, axis=axis), mesh,
+                     [table_spec, spec[:2]], spec)(table, tokens)
 
 
 def _product(eq, x, w, batched=False):

@@ -13,7 +13,6 @@ handover) are host plane and are not ported.
 from __future__ import annotations
 
 import datetime
-import os
 import socket
 from typing import Sequence, Tuple
 
@@ -36,18 +35,16 @@ def local_placement(hosts: Sequence[str], rank: int) -> Tuple[int, int]:
 def _bind_card(store, rank: int, world_size: int,
                timeout: datetime.timedelta) -> torch.device:
     """Exchange host names over the rendezvous store, then make this
-    rank's card (its local rank, or ``LOCAL_RANK`` where the caller sets
-    it) the current one. Raises when the host has more ranks than cards."""
+    rank's card (its local rank) the current one. Raises when the host
+    has more ranks than cards."""
     store = dist.PrefixStore(_HOST_KEY, store)
     store.set(str(rank), socket.gethostname())
     keys = [str(r) for r in range(world_size)]
     store.wait(keys, timeout)
     hosts = [store.get(k).decode() for k in keys]
     local_rank, on_host = local_placement(hosts, rank)
-    if "LOCAL_RANK" in os.environ:
-        local_rank = int(os.environ["LOCAL_RANK"])
     cards = torch.cuda.device_count()
-    if on_host > cards or local_rank >= cards:
+    if on_host > cards:
         raise RuntimeError(
             f"host {hosts[rank]} has {on_host} ranks of the gang but "
             f"{cards} CUDA cards (rank {rank} wants card {local_rank}): "
