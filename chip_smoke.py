@@ -44,6 +44,11 @@ Phases, one JSON line each on stdout:
                "full") trained by make_train_step with AdamW at B=1,
                S=2048: one warm-up step, then 3 timed steps on one batch;
                checks the loss falls, the launch counts, the peak memory.
+               Then 4 steps more through make_train_step(session=...) with
+               a recording session: host_to_device, then "compile", then
+               "compute" 3 times, each interval within 1 ms of the host
+               clock's step ms, 2048 tokens and their flops a step; the
+               MFU and the instrumented against the bare step ms.
      parallel - the multi-device plane over a world-1 NCCL group on the
                card: every collective, symbolic and eager, f32 and bf16,
                equal to its world-1 value (host µs a call, the NCCL
@@ -87,7 +92,12 @@ Phases, one JSON line each on stdout:
                tensor cores; the device-busy share of sampling and update.
      rl      - PPO, APPO, IMPALA, DQN, SAC, BC and MARWIL with the learner
                on the card and the runners in-process: finite losses,
-               moved params, and each update card against CPU.
+               moved params, and each update card against CPU; then PPO,
+               IMPALA, APPO, DQN and SAC with two runners in spawned
+               processes through RunnerHooks over multiprocessing: PPO,
+               DQN and SAC bit-equal to the in-process run, IMPALA and
+               APPO (fragments in completion order) finite and moving,
+               CUDA never initialised in a runner; iteration ms both ways.
   7. reference - a small f32 model served, then trained 3 steps, on the
                card and on the CPU from the same weights: identical greedy
                streams (plain, speculative in both regimes, LoRA, export ->
@@ -1729,19 +1739,28 @@ def _model_flops_per_token(cfg, seq):
         + 6 * cfg.n_layers * seq * cfg.dim
 
 
-def _build_8b_trainer(torch):
-    """Llama-3-8B (bf16, full width and depth, seed 7, remat "full") under
-    make_train_step with bench.py's optimizer, adamw(3e-4,
-    weight_decay=0.1); one seeded batch of B=1, S=2048."""
-    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, init_params, lm_loss
+def _8b_train_step(session=None):
+    """make_train_step for Llama-3-8B (bf16, full width and depth, remat
+    "full") with bench.py's optimizer, adamw(3e-4, weight_decay=0.1),
+    reporting to ``session`` when one is given."""
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, lm_loss
     from ray_tpu_torch.train import adamw, make_train_step
 
     cfg = LLAMA_CONFIGS["8b"]
     require(cfg.remat and cfg.remat_policy == "full", "8b remat is not full")
-    init_fn, step_fn, place_batch = make_train_step(
+    return cfg, make_train_step(
         lambda p, b: lm_loss(p, b, cfg), adamw(3e-4, weight_decay=0.1),
         device="cuda",
-        model_flops_per_token=_model_flops_per_token(cfg, TRAIN_S))
+        model_flops_per_token=_model_flops_per_token(cfg, TRAIN_S),
+        session=session)
+
+
+def _build_8b_trainer(torch):
+    """The 8B trainer (``_8b_train_step``) on seed 7's weights; one seeded
+    batch of B=1, S=2048."""
+    from ray_tpu_torch.models.llama import init_params
+
+    cfg, (init_fn, step_fn, place_batch) = _8b_train_step()
     state = init_fn(init_params(cfg, seed=7, device="cuda"))
     batch = place_batch(_train_batch(torch, cfg))
     return cfg, state, step_fn, batch
@@ -1807,9 +1826,92 @@ def _check_training(torch, losses, norms, counts, want, m):
     require(int(m["step"]) == 4, "the step counter is not 4")
 
 
-def phase_train(torch):
+class _RecordingTimeline:
+    def __init__(self):
+        self.intervals = []
+
+    def record_interval(self, name, t0, t1):
+        self.intervals.append((name, t0, t1))
+
+
+class _RecordingSession:
+    """A training session as ray_tpu.train's step reports to one
+    (``telemetry_on``, ``timeline.record_interval``, ``note_step``),
+    recording what it is given."""
+
+    telemetry_on = True
+
+    def __init__(self):
+        self.timeline = _RecordingTimeline()
+        self.notes = []
+
+    def note_step(self, **kw):
+        self.notes.append(kw)
+
+
+def _session_steps(torch, cfg, state, bare_ms, card):
+    """The 8B step under a recording session, on the train phase's state:
+    the host batch through the instrumented place_batch, then 4 steps.
+    Step 1 must be "compile", steps 2-4 "compute", each compute interval
+    within 1 ms of the host clock's step ms, and every note the batch's
+    2048 tokens and model_flops_per_token x 2048 flops. Returns (state,
+    the 4 steps' launches)."""
+    sess = _RecordingSession()
+    _, (_, step_fn, place_batch) = _8b_train_step(lambda: sess)
+    fpt = step_fn.model_flops_per_token
+    batch = place_batch(_train_batch(torch, cfg))
+    _zero_counts()
+    host_ms, losses = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    counts = _train_counts()
+    phases = [name for name, _, _ in sess.timeline.intervals]
+    steps = [(t1 - t0) * 1e3 for name, t0, t1 in sess.timeline.intervals
+             if name != "host_to_device"]
+    compute_ms = steps[1:]
+    mean_ms = sum(compute_ms) / len(compute_ms)
+    tokens = TRAIN_B * TRAIN_S
+    mfu = fpt * tokens / (mean_ms / 1e3) / BF16_FLOPS
+    want = _want_train_counts(cfg.n_layers, steps=4)
+    emit({"phase": "train_session", "model": "llama3-8b", "batch": TRAIN_B,
+          "seq": TRAIN_S, "phases": phases, "interval_ms": steps,
+          "host_ms": host_ms, "host_minus_interval_ms": [
+              h - i for h, i in zip(host_ms, steps)],
+          "compile_kind": sess.notes[0]["compile_kind"],
+          "notes": sess.notes, "loss": losses,
+          "mean_compute_ms": mean_ms, "bare_mean_step_ms": bare_ms,
+          "instrumented_minus_bare_ms": mean_ms - bare_ms,
+          "mfu": mfu, "launches": counts, "expected_launches": want,
+          "nvidia_smi": card})
+    require(phases == ["host_to_device", "compile", "compute", "compute",
+                       "compute"], f"session phases {phases}")
+    # the compile step's host time also holds the kernel cache's probes
+    require(all(abs(a - b) <= 1.0 for a, b in zip(compute_ms, host_ms[1:])),
+            f"session compute intervals {compute_ms} ms against host "
+            f"{host_ms[1:]} ms")
+    require([n["tokens"] for n in sess.notes] == [tokens] * 4
+            and [n["flops"] for n in sess.notes] == [fpt * tokens] * 4
+            and [n["chips"] for n in sess.notes] == [1] * 4
+            and [n["batch_shape"] for n in sess.notes]
+            == [f"({TRAIN_B}, {TRAIN_S})/int32"] * 4
+            and not any(n["recompile"] for n in sess.notes)
+            and sess.notes[0]["compile_kind"] in ("cold", "cache_hit")
+            and [n["compile_kind"] for n in sess.notes[1:]] == [""] * 3,
+            f"session notes {sess.notes}")
+    require(all(math.isfinite(x) for x in losses),
+            f"a session step's loss is not finite: {losses}")
+    require(counts == want, f"session launches {counts}, expected {want}")
+    require(int(m["step"]) == 8, "the step counter is not 8")
+    return state, counts
+
+
+def phase_train(torch, card):
     """The training path at full width and depth: 1 warm-up step, then 3
-    timed steps on the same batch."""
+    timed steps on the same batch; then 4 steps more under a recording
+    training session (``_session_steps``)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, state, step_fn, batch = _build_8b_trainer(torch)
@@ -1836,7 +1938,9 @@ def phase_train(torch):
     _check_training(torch, losses, norms, counts, want, m)
     _TRAIN.update(loss=losses, grad_norm=norms, step_ms=step_ms,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return counts
+    state, session_counts = _session_steps(torch, cfg, state,
+                                           sum(step_ms) / 3, card)
+    return {k: counts[k] + session_counts[k] for k in counts}
 
 
 # --- the multi-device plane at world size 1 --------------------------------
@@ -4424,6 +4528,275 @@ def _update_on_both(torch, fn, params, extra):
     return out
 
 
+# --- RL runners in spawned processes ---------------------------------------
+# A second implementation of ray_tpu_torch.rllib.RunnerHooks, over
+# multiprocessing (spawn): ray_tpu's runtime is not on the card's machine.
+
+RL_CALL_TIMEOUT_S = 300.0
+
+
+def _mp_runner_main(conn, cls, args):
+    """A runner process: ``cls(*args)``, then (call id, method, args)
+    messages served in order until None; each reply is (call id, ok,
+    value or error text). The method ``cuda_initialized`` reports
+    whether this process has initialised CUDA."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(1)
+    runner = cls(*args)
+    while True:
+        msg = pickle.loads(conn.recv_bytes())
+        if msg is None:
+            break
+        cid, name, call_args = msg
+        try:
+            value = (torch.cuda.is_initialized() if name == "cuda_initialized"
+                     else getattr(runner, name)(*call_args))
+            reply = (cid, True, value)
+        except Exception as e:  # sent to the caller's get()
+            reply = (cid, False, f"{type(e).__name__}: {e}")
+        conn.send_bytes(pickle.dumps(reply))
+    conn.close()
+
+
+class _MpRef:
+    __slots__ = ("handle", "cid")
+
+    def __init__(self, handle, cid):
+        self.handle, self.cid = handle, cid
+
+
+class _MpMethod:
+    def __init__(self, handle, name):
+        self._handle, self._name = handle, name
+
+    def remote(self, *args):
+        return self._handle.call(self._name, args)
+
+
+class _MpHandle:
+    """A runner in a spawned process: ``handle.method.remote(*args)``
+    sends the call and returns a ref; replies are kept by call id with
+    their arrival number."""
+
+    def __init__(self, pool, cls, args):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_mp_runner_main,
+                                args=(child, cls, args), daemon=True)
+        self.proc.start()
+        child.close()
+        self.pool = pool
+        self.replies = {}
+        self._next = 0
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _MpMethod(self, name)
+
+    def call(self, name, args):
+        import pickle
+
+        cid, self._next = self._next, self._next + 1
+        self.conn.send_bytes(pickle.dumps((cid, name, args)))
+        return _MpRef(self, cid)
+
+    def receive(self):
+        import pickle
+
+        cid, ok, value = pickle.loads(self.conn.recv_bytes())
+        self.replies[cid] = (ok, value, self.pool.arrived())
+
+
+class MpRunners:
+    """Runner placement over spawned processes: ``hooks()`` is a
+    RunnerHooks whose remote, get, wait and kill are this object's."""
+
+    def __init__(self):
+        self.handles = []
+        self._arrivals = 0
+
+    def arrived(self) -> int:
+        self._arrivals += 1
+        return self._arrivals
+
+    def hooks(self):
+        import types
+
+        from ray_tpu_torch.rllib import RunnerHooks
+
+        def remote(cls):
+            return types.SimpleNamespace(remote=lambda *args: self._spawn(
+                cls, args))
+
+        return RunnerHooks(remote=remote, get=self.get, wait=self.wait,
+                           kill=self.kill)
+
+    def _spawn(self, cls, args):
+        handle = _MpHandle(self, cls, args)
+        self.handles.append(handle)
+        return handle
+
+    @staticmethod
+    def _await(ref, deadline):
+        while ref.cid not in ref.handle.replies:
+            left = deadline - time.monotonic()
+            if left <= 0 or not ref.handle.conn.poll(left):
+                raise TimeoutError(f"no reply from runner pid "
+                                   f"{ref.handle.proc.pid} in time")
+            ref.handle.receive()
+
+    def get(self, refs, timeout):
+        deadline = time.monotonic() + timeout
+        one = isinstance(refs, _MpRef)
+        out = []
+        for ref in [refs] if one else refs:
+            self._await(ref, deadline)
+            ok, value, _ = ref.handle.replies.pop(ref.cid)
+            if not ok:
+                raise RuntimeError(f"runner pid {ref.handle.proc.pid}: "
+                                   f"{value}")
+            out.append(value)
+        return out[0] if one else out
+
+    def wait(self, refs, num_returns, timeout):
+        from multiprocessing.connection import wait as conn_wait
+
+        refs = list(refs)
+        deadline = time.monotonic() + timeout
+        while True:
+            done = [r for r in refs if r.cid in r.handle.replies]
+            left = deadline - time.monotonic()
+            if len(done) >= num_returns or left <= 0:
+                break
+            pending = {r.handle.conn: r.handle for r in refs
+                       if r.cid not in r.handle.replies}
+            for conn in conn_wait(list(pending), timeout=left):
+                pending[conn].receive()
+        done.sort(key=lambda r: r.handle.replies[r.cid][2])
+        ready = done[:num_returns]
+        return ready, [r for r in refs if r not in ready]
+
+    def kill(self, handle):
+        import pickle
+
+        if handle.proc.is_alive():
+            handle.conn.send_bytes(pickle.dumps(None))
+            handle.proc.join(10)
+        if handle.proc.is_alive():
+            handle.proc.terminate()
+            handle.proc.join(10)
+        handle.conn.close()
+
+    def cuda_initialized(self):
+        """Whether each live runner process has initialised CUDA."""
+        refs = [h.call("cuda_initialized", ()) for h in self.handles
+                if h.proc.is_alive()]
+        return self.get(refs, RL_CALL_TIMEOUT_S)
+
+
+def rl_remote_configs():
+    """PPO, IMPALA, APPO, DQN and SAC at their default widths with two
+    runners each (DQN and SAC learn from their first fragments), and the
+    iterations each runs."""
+    from ray_tpu_torch.rllib import (APPOConfig, DQNConfig, IMPALAConfig,
+                                     PPOConfig, SACConfig)
+
+    two = dict(num_env_runners=2)
+    return [("ppo", PPOConfig().env_runners(**two), 2),
+            ("impala", IMPALAConfig().env_runners(**two), 2),
+            ("appo", APPOConfig().env_runners(**two), 2),
+            ("dqn", DQNConfig().env_runners(**two).training(
+                learning_starts=128), 2),
+            ("sac", SACConfig().env_runners(**two).training(
+                learning_starts=200), 2)]
+
+
+def rl_in_process_and_spawned(torch, config, n_iter, device):
+    """``config`` built twice on ``device``: runners in this process, then
+    in spawned processes (MpRunners), each trained ``n_iter`` iterations.
+    Returns {"in_process"|"spawned": (metrics a step, params as CPU
+    tensors, iteration ms, params before)} and, for the spawned runners,
+    whether each process initialised CUDA."""
+    from ray_tpu_torch._private.tree import tree_leaves
+
+    out, cuda_flags = {}, None
+    for where in ("in_process", "spawned"):
+        pool = MpRunners() if where == "spawned" else None
+        algo = config.build(device=device,
+                            hooks=pool.hooks() if pool else None)
+        try:
+            before = [t.detach().cpu().clone()
+                      for t in tree_leaves(algo.params)]
+            metrics, ms = [], []
+            for _ in range(n_iter):
+                t0 = time.perf_counter()
+                metrics.append(algo.train())
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if pool:
+                cuda_flags = pool.cuda_initialized()
+            out[where] = (metrics, [t.detach().cpu().clone()
+                                    for t in tree_leaves(algo.params)],
+                          ms, before)
+        finally:
+            algo.stop()
+        if pool:
+            require(not any(h.proc.is_alive() for h in pool.handles),
+                    "a runner process outlived stop()")
+    return out, cuda_flags
+
+
+def rl_same_run(torch, a, b):
+    """Two runs' metrics (NaN equal to NaN) and params bit for bit."""
+    (ma, pa, _, _), (mb, pb, _, _) = a, b
+    same_metrics = all(
+        x.keys() == y.keys() and all(
+            x[k] == y[k] or (isinstance(x[k], float) and math.isnan(x[k])
+                             and math.isnan(y[k])) for k in x)
+        for x, y in zip(ma, mb))
+    return same_metrics and all(torch.equal(s, t) for s, t in zip(pa, pb))
+
+
+def _rl_spawned_runners(torch, card):
+    """The five runner-based learners with two runners in spawned
+    processes against the same learners with their runners in this
+    process; the learner on the card in both."""
+    for name, config, n_iter in rl_remote_configs():
+        t0 = time.perf_counter()
+        runs, cuda_flags = rl_in_process_and_spawned(torch, config, n_iter,
+                                                     "cuda")
+        (m_loc, p_loc, ms_loc, _), (m_sp, p_sp, ms_sp, before) = (
+            runs["in_process"], runs["spawned"])
+        losses = {k: v for k, v in m_sp[-1].items() if "loss" in k}
+        moved = any(not torch.equal(a, b) for a, b in zip(p_sp, before))
+        same = rl_same_run(torch, runs["in_process"], runs["spawned"])
+        emit({"phase": "rl_runners", "algorithm": name, "runners": 2,
+              "iterations": n_iter, "iteration_ms": {
+                  "in_process": ms_loc, "spawned": ms_sp},
+              "wall_s": time.perf_counter() - t0,
+              "losses_spawned": losses, "params_moved": moved,
+              "bit_equal_to_in_process": same,
+              "runner_cuda_initialized": cuda_flags, "nvidia_smi": card})
+        require(cuda_flags == [False, False],
+                f"rl {name}: a runner process initialised CUDA "
+                f"({cuda_flags})")
+        require(losses and all(math.isfinite(v) for v in losses.values()),
+                f"rl {name} (spawned runners): a loss is missing or not "
+                f"finite: {losses}")
+        require(moved, f"rl {name} (spawned runners): the params did not "
+                "move")
+        if name in ("ppo", "dqn", "sac"):
+            require(same, f"rl {name}: spawned runners differ from "
+                    "in-process ones")
+
+
 def phase_rl(torch, card):
     """The MLP learners with the learner on the card and the runners
     in-process: PPO and APPO on CartPole 3 iterations, IMPALA and DQN 2,
@@ -4431,7 +4804,11 @@ def phase_rl(torch, card):
     Each must give finite losses and move its params; then each update is
     run on the card and on the CPU from the algorithm's params and a batch
     of its own data (SAC with the same noise), f32 with TF32 off: metrics
-    within 1e-4 relative, every param within 1e-5 abs + 1e-5 rel."""
+    within 1e-4 relative, every param within 1e-5 abs + 1e-5 rel. Then
+    PPO, IMPALA, APPO, DQN and SAC with two runners each, in this process
+    and in spawned processes (``MpRunners``): PPO, DQN and SAC equal to
+    the bit, IMPALA and APPO (fragments in completion order) finite and
+    moving, no runner process with CUDA initialised."""
     import tempfile
 
     import numpy as np
@@ -4569,6 +4946,7 @@ def phase_rl(torch, card):
         require(m_err < 1e-4 and p_ok, f"rl {name}: the update on the card "
                 f"differs from the CPU's ({m_err}, {p_err})")
         algo.stop()
+    _rl_spawned_runners(torch, card)
     return {}
 
 
@@ -5186,7 +5564,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         if "train" in phases:
             # flash_fwd runs on both paths: its row counts both runs
-            for name, n in phase_train(torch).items():
+            for name, n in phase_train(torch, card).items():
                 launches[name] = launches.get(name, 0) + n
             torch.cuda.empty_cache()
         if "parallel" in phases:

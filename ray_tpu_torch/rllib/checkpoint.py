@@ -121,15 +121,21 @@ class CheckpointableAlgorithm:
         self._apply_state(state)
 
     @classmethod
-    def from_checkpoint(cls, path: str, device: DeviceLike = None):
-        """Rebuild the algorithm (and its runners) from a saved state's
-        config on ``device`` (default: the card), then restore it; the
-        constructor's first broadcast is skipped."""
+    def from_checkpoint(cls, path: str, device: DeviceLike = None,
+                        hooks=None):
+        """Rebuild the algorithm from a saved state's config on ``device``
+        (default: the card), its runners placed by ``hooks`` (a
+        ``runners.RunnerHooks``; default: in this process), then restore
+        it; the constructor's first broadcast is skipped. The runners
+        start afresh from their seeds, as the reference's rebuilt runner
+        actors do."""
         with open(os.path.join(path, "algorithm_state.pkl"), "rb") as f:
             state = pickle.load(f)
+        kwargs = {} if hooks is None else {"hooks": hooks}
         token = _RESTORING.set(True)
         try:
-            algo = cls(state["config"], device=resolve_device(device))
+            algo = cls(state["config"], device=resolve_device(device),
+                       **kwargs)
         finally:
             _RESTORING.reset(token)
         algo._apply_state(state)

@@ -1,8 +1,9 @@
 """DQN in PyTorch (counterpart of ``ray_tpu/rllib/dqn.py``):
 epsilon-greedy env runners feed a replay buffer; the learner's double-DQN
 TD update, AdamW (optax's adam) and the periodic target sync run on the
-algorithm's device (the card unless ``device="cpu"``). The runners are
-held in-process and act on the CPU from host copies of the weights.
+algorithm's device (the card unless ``device="cpu"``). The runners act
+on the CPU from host copies of the weights, where the ``hooks`` place
+them (``runners.RunnerHooks``; default: in this process).
 
     algo = (DQNConfig().environment("CartPole-v1")
             .env_runners(num_env_runners=2)
@@ -29,6 +30,8 @@ from ..train.optim import adamw
 from .checkpoint import (CheckpointableAlgorithm, broadcast_suppressed,
                          host_copy, on_device, to_numpy)
 from .env import make_env
+from .runners import (BROADCAST_TIMEOUT_S, LOCAL, SAMPLE_TIMEOUT_S,
+                      RunnerHooks)
 from .ppo import adam_step, batch_to, init_policy  # the pi head is Q
 
 
@@ -77,7 +80,7 @@ class ReplayBuffer:
 
 
 class DQNEnvRunner:
-    """Epsilon-greedy sampling worker, held in-process."""
+    """Epsilon-greedy sampling worker (placed by the algorithm's hooks)."""
 
     def __init__(self, env_spec, hidden: Tuple[int, ...], seed: int):
         self.env = make_env(env_spec, seed=seed)
@@ -196,8 +199,9 @@ class DQNConfig:
             setattr(self, key, val)
         return self
 
-    def build(self, device: DeviceLike = None) -> "DQN":
-        return DQN(self, device=device)
+    def build(self, device: DeviceLike = None,
+              hooks: Optional[RunnerHooks] = None) -> "DQN":
+        return DQN(self, device=device, hooks=hooks)
 
 
 def _copy(params):
@@ -208,9 +212,11 @@ class DQN(CheckpointableAlgorithm):
     """Sample -> replay add -> minibatch updates -> periodic target sync
     -> broadcast."""
 
-    def __init__(self, config: DQNConfig, device: DeviceLike = None):
+    def __init__(self, config: DQNConfig, device: DeviceLike = None,
+                 hooks: Optional[RunnerHooks] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.hooks = hooks or LOCAL
         probe = make_env(config.env, seed=0)
         self.obs_dim = probe.observation_dim
         self.act_dim = probe.action_dim
@@ -222,9 +228,9 @@ class DQN(CheckpointableAlgorithm):
         self.buffer = ReplayBuffer(config.buffer_capacity, self.obs_dim)
         self.np_rng = np.random.default_rng(config.seed)
         self.iteration = 0
-        self.runners = [DQNEnvRunner(config.env, config.hidden,
-                                     config.seed + 200 + i)
-                        for i in range(config.num_env_runners)]
+        self.runners = self.hooks.place(
+            DQNEnvRunner, config.env, config.hidden,
+            [config.seed + 200 + i for i in range(config.num_env_runners)])
         if not broadcast_suppressed():  # from_checkpoint restores first
             self._broadcast()
 
@@ -239,9 +245,9 @@ class DQN(CheckpointableAlgorithm):
                                            self.device)
 
     def _broadcast(self) -> None:
-        host = host_copy(self.params)
-        for r in self.runners:
-            r.set_params(host)
+        self.hooks.call_all(self.runners, "set_params",
+                            host_copy(self.params),
+                            timeout=BROADCAST_TIMEOUT_S)
 
     def _epsilon(self) -> float:
         cfg = self.config
@@ -252,8 +258,9 @@ class DQN(CheckpointableAlgorithm):
     def train(self) -> Dict[str, Any]:
         cfg = self.config
         eps = self._epsilon()
-        frags = [r.sample(cfg.rollout_fragment_length, eps)
-                 for r in self.runners]
+        frags = self.hooks.call_all(self.runners, "sample",
+                                    cfg.rollout_fragment_length, eps,
+                                    timeout=SAMPLE_TIMEOUT_S)
         ep_returns: List[float] = []
         for frag in frags:
             ep_returns.extend(frag.pop("episode_returns").tolist())
@@ -285,4 +292,5 @@ class DQN(CheckpointableAlgorithm):
         }
 
     def stop(self) -> None:
+        self.hooks.stop(self.runners)
         self.runners = []

@@ -2,12 +2,15 @@
 ``ray_tpu/rllib/impala.py``; Espeholt et al. 2018 defines the v-trace
 targets used here).
 
-The reference keeps one ``sample()`` in flight on every remote runner and
-consumes fragments in completion order. Here the runners are held
-in-process and drained in turn: each fragment updates the learner at
-once, and only the runner just drained gets the new weights, so a runner
-samples with the weights it had when it was last drained, as a remote
-runner's in-flight sample does.
+One ``sample()`` stays in flight on every runner, and fragments are taken
+in the order the hooks' ``wait`` reports them (``runners.RunnerHooks``).
+Each fragment updates the learner at once; only the runner just drained
+gets the new weights, and it is relaunched. With ``ray_tpu``'s functions
+as the hooks the runners are actors and a slow one never holds back a
+fast one, as in the reference. With the default hooks the runners are
+held in this process: a launch samples at once and ``wait`` reports the
+launches in order, so the runners are drained in turn, each sampling with
+the weights it got when it was last drained.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from ..train.optim import adamw
 from .checkpoint import (CheckpointableAlgorithm, broadcast_suppressed,
                          host_copy, on_device)
 from .env import make_env
+from .runners import (BROADCAST_TIMEOUT_S, LOCAL, REFRESH_TIMEOUT_S,
+                      SAMPLE_TIMEOUT_S, RunnerHooks)
 from .ppo import (EnvRunner, adam_step, batch_to, init_policy, log_probs,
                   policy_forward)
 
@@ -125,17 +130,21 @@ class IMPALAConfig:
             setattr(self, key, val)
         return self
 
-    def build(self, device: DeviceLike = None) -> "IMPALA":
-        return IMPALA(self, device=device)
+    def build(self, device: DeviceLike = None,
+              hooks: Optional[RunnerHooks] = None) -> "IMPALA":
+        return IMPALA(self, device=device, hooks=hooks)
 
 
 class IMPALA(CheckpointableAlgorithm):
-    """Actor-learner: fragments drained from the runners in turn, each
-    updating the learner and refreshing only its runner's weights."""
+    """Actor-learner: one sample in flight on every runner; fragments taken
+    in completion order, each updating the learner and refreshing only its
+    runner's weights."""
 
-    def __init__(self, config: IMPALAConfig, device: DeviceLike = None):
+    def __init__(self, config: IMPALAConfig, device: DeviceLike = None,
+                 hooks: Optional[RunnerHooks] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.hooks = hooks or LOCAL
         probe = make_env(config.env, seed=0)
         self.obs_dim = probe.observation_dim
         self.act_dim = probe.action_dim
@@ -144,26 +153,37 @@ class IMPALA(CheckpointableAlgorithm):
             self.act_dim, config.hidden), self.device, grad=True)
         self.opt_state = adamw(config.lr, weight_decay=0.0).init(self.params)
         self.iteration = 0
-        self.runners = [EnvRunner(config.env, config.hidden,
-                                  config.seed + 100 + i)
-                        for i in range(config.num_env_runners)]
-        self._next = 0   # the runner drained next
+        self.runners = self.hooks.place(
+            EnvRunner, config.env, config.hidden,
+            [config.seed + 100 + i for i in range(config.num_env_runners)])
+        self._inflight: Dict[Any, Any] = {}  # ref -> runner
         if not broadcast_suppressed():
             self._broadcast()
 
     def _broadcast(self) -> None:
-        host = host_copy(self.params)
-        for r in self.runners:
-            r.set_params(host)
+        self.hooks.call_all(self.runners, "set_params",
+                            host_copy(self.params),
+                            timeout=BROADCAST_TIMEOUT_S)
+
+    def _launch(self, runner) -> None:
+        ref = runner.sample.remote(self.config.rollout_fragment_length)
+        self._inflight[ref] = runner
 
     def train(self) -> Dict[str, Any]:
         cfg = self.config
+        for runner in self.runners:
+            if not any(r is runner for r in self._inflight.values()):
+                self._launch(runner)
         losses: Dict[str, Any] = {}
         ep_returns: list = []
         for _ in range(cfg.fragments_per_iter):
-            runner = self.runners[self._next]
-            self._next = (self._next + 1) % len(self.runners)
-            frag = runner.sample(cfg.rollout_fragment_length)
+            ready, _ = self.hooks.wait(list(self._inflight), num_returns=1,
+                                       timeout=SAMPLE_TIMEOUT_S)
+            if not ready:
+                raise TimeoutError(
+                    f"no fragment arrived within {SAMPLE_TIMEOUT_S} s")
+            runner = self._inflight.pop(ready[0])
+            frag = self.hooks.get(ready[0], timeout=SAMPLE_TIMEOUT_S)
             batch = batch_to({k: frag[k] for k in (
                 "obs", "actions", "rewards", "dones", "logp",
                 "bootstrap_value")}, self.device)
@@ -174,8 +194,10 @@ class IMPALA(CheckpointableAlgorithm):
                 rho_bar=cfg.vtrace_rho_clip, c_bar=cfg.vtrace_c_clip,
                 clip_param=cfg.clip_param)
             ep_returns.extend(frag["episode_returns"].tolist())
-            # fresh weights to the runner just drained
-            runner.set_params(host_copy(self.params))
+            # fresh weights to the runner just drained, then relaunch it
+            self.hooks.get(runner.set_params.remote(host_copy(self.params)),
+                           timeout=REFRESH_TIMEOUT_S)
+            self._launch(runner)
         self.iteration += 1
         return {
             "training_iteration": self.iteration,
@@ -188,4 +210,6 @@ class IMPALA(CheckpointableAlgorithm):
         }
 
     def stop(self) -> None:
+        self.hooks.stop(self.runners)
         self.runners = []
+        self._inflight.clear()

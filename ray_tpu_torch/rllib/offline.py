@@ -6,17 +6,18 @@ of ``ray_tpu/rllib/offline.py``).
     is regressed on Monte-Carlo returns and the imitation term is
     weighted exp(beta * normalised advantage). beta=0 is exactly BC.
 
-The dataset is npz shards, read whole by :func:`read_rollouts`; the
-reference's ``rollout_dataset`` (the shards as a ``ray_tpu.data``
-Dataset) belongs to the data plane and is not ported. The learner runs
-on the algorithm's device (the card unless ``device="cpu"``).
+The dataset is npz shards, read whole by :func:`read_rollouts`, or handed
+as step rows to a Dataset constructor of the caller's by
+:func:`rollout_dataset` (``ray_tpu.data.from_items`` gives the
+reference's Dataset). The learner runs on the algorithm's device (the
+card unless ``device="cpu"``).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +28,7 @@ from .checkpoint import CheckpointableAlgorithm, host_copy, on_device
 from .env import make_env
 from .ppo import adam_step, batch_to, init_policy, log_probs, policy_forward
 
-__all__ = ["record_rollouts", "read_rollouts", "BC", "BCConfig", "MARWIL",
+__all__ = ["record_rollouts", "read_rollouts", "rollout_dataset", "BC", "BCConfig", "MARWIL",
            "MARWILConfig"]
 
 
@@ -93,6 +94,16 @@ def read_rollouts(path: str) -> Dict[str, np.ndarray]:
     parts = [np.load(s) for s in shards]
     return {k: np.concatenate([p[k] for p in parts])
             for k in ("obs", "actions", "rewards", "dones")}
+
+
+def rollout_dataset(path: str, from_items: Callable[[List[dict]], Any]):
+    """The shards under ``path`` as ``from_items(rows)``: one dict a step
+    with the keys obs, actions, rewards and dones, each value that step's
+    numpy row or scalar (float32, int32, float32, float32), the list the
+    reference's ``rollout_dataset`` hands ``ray_tpu.data.from_items``."""
+    rows = read_rollouts(path)
+    n = len(rows["actions"])
+    return from_items([{k: rows[k][i] for k in rows} for i in range(n)])
 
 
 def _mc_returns(rewards: np.ndarray, dones: np.ndarray,

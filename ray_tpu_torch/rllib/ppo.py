@@ -10,9 +10,11 @@
 The learner's params, AdamW state and update live on the algorithm's
 device (the card unless ``device="cpu"``); the update is plain tensor
 code (an MLP: its products are ``torch.matmul``, as the reference leaves
-them to XLA). The env runners are held in-process, a list sampled in
-turn with the reference's seeds; they act on the CPU from host copies of
-the weights, so a fragment is the reference runner's, draw for draw.
+them to XLA). The env runners take the reference's seeds and act on the
+CPU from host copies of the weights, so a fragment is the reference
+runner's, draw for draw. Where they run is the ``hooks``' choice
+(``runners.RunnerHooks``): in this process by default, sampled in turn;
+``ray_tpu`` actors sampling at once when the hooks are ``ray_tpu``'s.
 Each epoch's shuffle is a permutation from a CPU ``torch.Generator``
 seeded from the algorithm's seed, so the card and the CPU shuffle alike.
 """
@@ -31,6 +33,8 @@ from ..train.optim import adamw
 from .checkpoint import (CheckpointableAlgorithm, broadcast_suppressed,
                          host_copy, on_device)
 from .env import make_env
+from .runners import (BROADCAST_TIMEOUT_S, LOCAL, SAMPLE_TIMEOUT_S,
+                      RunnerHooks)
 
 # ---------------------------------------------------------------------------
 # Policy/value network: a functional MLP.
@@ -82,7 +86,7 @@ def log_probs(logits, actions):
 
 
 # ---------------------------------------------------------------------------
-# Env runner: one sampling worker, held in-process.
+# Env runner: one sampling worker (placed by the algorithm's hooks).
 # ---------------------------------------------------------------------------
 
 
@@ -251,8 +255,9 @@ class PPOConfig:
             setattr(self, key, val)
         return self
 
-    def build(self, device: DeviceLike = None) -> "PPO":
-        return PPO(self, device=device)
+    def build(self, device: DeviceLike = None,
+              hooks: Optional[RunnerHooks] = None) -> "PPO":
+        return PPO(self, device=device, hooks=hooks)
 
 
 def batch_to(arrays: Dict[str, np.ndarray], device) -> Dict[str, Any]:
@@ -260,12 +265,15 @@ def batch_to(arrays: Dict[str, np.ndarray], device) -> Dict[str, Any]:
 
 
 class PPO(CheckpointableAlgorithm):
-    """The runners sample in turn, the learner updates on ``device``, the
-    new weights go back to the runners as host copies."""
+    """The runners sample, the learner updates on ``device``, the new
+    weights go back to the runners as host copies. ``hooks`` place the
+    runners (default: in this process)."""
 
-    def __init__(self, config: PPOConfig, device: DeviceLike = None):
+    def __init__(self, config: PPOConfig, device: DeviceLike = None,
+                 hooks: Optional[RunnerHooks] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.hooks = hooks or LOCAL
         probe = make_env(config.env, seed=0)
         self.obs_dim = probe.observation_dim
         self.act_dim = probe.action_dim
@@ -275,20 +283,22 @@ class PPO(CheckpointableAlgorithm):
         self.opt_state = adamw(config.lr, weight_decay=0.0).init(self.params)
         self._gen = torch.Generator().manual_seed(config.seed + 1)
         self.iteration = 0
-        self.runners = [EnvRunner(config.env, config.hidden,
-                                  config.seed + 100 + i)
-                        for i in range(config.num_env_runners)]
+        self.runners = self.hooks.place(
+            EnvRunner, config.env, config.hidden,
+            [config.seed + 100 + i for i in range(config.num_env_runners)])
         if not broadcast_suppressed():  # from_checkpoint restores first
             self._broadcast()
 
     def _broadcast(self) -> None:
-        host = host_copy(self.params)
-        for r in self.runners:
-            r.set_params(host)
+        self.hooks.call_all(self.runners, "set_params",
+                            host_copy(self.params),
+                            timeout=BROADCAST_TIMEOUT_S)
 
     def train(self) -> Dict[str, Any]:
         cfg = self.config
-        frags = [r.sample(cfg.rollout_fragment_length) for r in self.runners]
+        frags = self.hooks.call_all(self.runners, "sample",
+                                    cfg.rollout_fragment_length,
+                                    timeout=SAMPLE_TIMEOUT_S)
         obs, acts, logps, advs, rets, ep_returns = [], [], [], [], [], []
         for frag in frags:
             adv, ret = _gae(frag["rewards"], frag["values"], frag["dones"],
@@ -321,4 +331,5 @@ class PPO(CheckpointableAlgorithm):
         }
 
     def stop(self) -> None:
+        self.hooks.stop(self.runners)
         self.runners = []

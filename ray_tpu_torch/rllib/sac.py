@@ -34,6 +34,8 @@ from .checkpoint import (CheckpointableAlgorithm, broadcast_suppressed,
                          host_copy, on_device, to_numpy)
 from .dqn import ReplayBuffer
 from .env import make_env
+from .runners import (BROADCAST_TIMEOUT_S, LOCAL, SAMPLE_TIMEOUT_S,
+                      RunnerHooks)
 from .ppo import adam_step, batch_to
 
 _LOG_STD_MIN, _LOG_STD_MAX = -10.0, 2.0
@@ -173,9 +175,9 @@ def sac_update(params, target, opt_state, batch, gen: torch.Generator, *,
 
 
 class SACEnvRunner:
-    """Stochastic-policy sampling worker over a continuous env, held
-    in-process; its noise comes from a CPU generator seeded with its
-    seed."""
+    """Stochastic-policy sampling worker over a continuous env (placed
+    by the algorithm's hooks); its noise comes from a CPU generator
+    seeded with its seed."""
 
     def __init__(self, env_spec, hidden: Tuple[int, ...], seed: int):
         self.env = make_env(env_spec, seed=seed)
@@ -191,6 +193,10 @@ class SACEnvRunner:
         self._params = params
         return True
 
+    def _eps(self, act_dim: int) -> torch.Tensor:
+        """One step's reparameterisation noise, [1, act_dim]."""
+        return torch.randn((1, act_dim), generator=self._gen)
+
     def sample(self, num_steps: int) -> Dict[str, np.ndarray]:
         obs_dim = self.env.observation_dim
         act_dim = self.env.action_dim
@@ -200,7 +206,7 @@ class SACEnvRunner:
                "rewards": np.zeros(num_steps, np.float32),
                "dones": np.zeros(num_steps, np.float32)}
         for t in range(num_steps):
-            eps = torch.randn((1, act_dim), generator=self._gen)
+            eps = self._eps(act_dim)
             with torch.no_grad():
                 act, _ = sample_action(self._params,
                                        torch.from_numpy(self._obs[None, :]),
@@ -263,16 +269,19 @@ class SACConfig:
             setattr(self, key, val)
         return self
 
-    def build(self, device: DeviceLike = None) -> "SAC":
-        return SAC(self, device=device)
+    def build(self, device: DeviceLike = None,
+              hooks: Optional[RunnerHooks] = None) -> "SAC":
+        return SAC(self, device=device, hooks=hooks)
 
 
 class SAC(CheckpointableAlgorithm):
     """Sample -> replay add -> n soft-actor-critic updates -> broadcast."""
 
-    def __init__(self, config: SACConfig, device: DeviceLike = None):
+    def __init__(self, config: SACConfig, device: DeviceLike = None,
+                 hooks: Optional[RunnerHooks] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.hooks = hooks or LOCAL
         probe = make_env(config.env, seed=0)
         if not getattr(probe, "continuous", False):
             raise ValueError(
@@ -295,9 +304,9 @@ class SAC(CheckpointableAlgorithm):
         self.np_rng = np.random.default_rng(config.seed)
         self._gen = torch.Generator().manual_seed(config.seed + 1)
         self.iteration = 0
-        self.runners = [SACEnvRunner(config.env, config.hidden,
-                                     config.seed + 300 + i)
-                        for i in range(config.num_env_runners)]
+        self.runners = self.hooks.place(
+            SACEnvRunner, config.env, config.hidden,
+            [config.seed + 300 + i for i in range(config.num_env_runners)])
         if not broadcast_suppressed():
             self._broadcast()
 
@@ -309,13 +318,15 @@ class SAC(CheckpointableAlgorithm):
             self.target = on_device(state["target"], self.device)
 
     def _broadcast(self) -> None:
-        host = host_copy(self.params)
-        for r in self.runners:
-            r.set_params(host)
+        self.hooks.call_all(self.runners, "set_params",
+                            host_copy(self.params),
+                            timeout=BROADCAST_TIMEOUT_S)
 
     def train(self) -> Dict[str, Any]:
         cfg = self.config
-        frags = [r.sample(cfg.rollout_fragment_length) for r in self.runners]
+        frags = self.hooks.call_all(self.runners, "sample",
+                                    cfg.rollout_fragment_length,
+                                    timeout=SAMPLE_TIMEOUT_S)
         returns: List[float] = []
         for frag in frags:
             returns.extend(frag.pop("episode_returns").tolist())
@@ -344,4 +355,5 @@ class SAC(CheckpointableAlgorithm):
         return metrics
 
     def stop(self) -> None:
+        self.hooks.stop(self.runners)
         self.runners = []

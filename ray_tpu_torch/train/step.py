@@ -1,13 +1,19 @@
-"""Train-step factory (counterpart of ``ray_tpu/train/step.py`` outside
-a training session).
+"""Train-step factory (counterpart of ``ray_tpu/train/step.py``).
 
 ``step_fn`` runs the loss's forward and backward, the global gradient
 norm and the optimizer update in place: the reference donates its state
 to a jitted step, the port updates the same tensors. With ``mesh=`` the
 params are DTensors placed by their logical axes (``shard_pytree``),
 AdamW's moments mirror them, batches shard by ("batch", "seq"), and the
-grad norm is the global one. The reference's session and telemetry
-plane is host plane and is not ported.
+grad norm is the global one.
+
+Inside a training session (``session=``, a callable that returns the
+current session or None) the step and ``place_batch`` report to it as the
+reference's do: compile, compute and host-to-device intervals, the
+compile kind, recompiles, tokens, flops and chips. The session is the
+host plane's (``ray_tpu.train``'s, or any object with ``telemetry_on``,
+``timeline.record_interval`` and ``note_step``); the port imports none
+of it.
 
 Parameter layout: ``init_fn`` turns the stacked tree into the trainer's
 tree, whose stacked layer groups (``"layers"``, and any ``"*_layers"``)
@@ -22,6 +28,8 @@ updates land in the stacked tensors, which the serving path and
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -31,8 +39,14 @@ from torch.distributed.tensor import DTensor
 
 from .._private.device import DeviceLike, resolve_device
 from .._private.tree import tree_leaves, tree_map, unstack_layers
+from ..ops._kernels import BUILD_DIR
 from ..parallel.sharding import (DEFAULT_RULES, distribute_batch,
                                  distribute_pytree)
+from .telemetry import StepInstrumenter
+
+# the port's convention: a rank drives one card (or, on the CPU, one
+# process), so each rank reports 1 chip and the ledger's fold sums them
+CHIPS_PER_RANK = 1
 
 
 class TrainState(NamedTuple):
@@ -45,10 +59,55 @@ def _full(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+# ---- the session's helpers (the reference's, on tensors) --------------
+
+def _dtype_name(x) -> str:
+    dtype = getattr(x, "dtype", "?")
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")    # numpy's name
+    return str(dtype)
+
+
+def _batch_signature(batch) -> str:
+    """The batch's shapes and dtypes in the reference's format
+    (``"(4, 24)/int32,..."``, leaves in sorted-key order, numpy dtype
+    names), so that one batch gives one string in both packages: the
+    unit the recompile detector keys on."""
+    return ",".join(f"{tuple(getattr(x, 'shape', ()))}/{_dtype_name(x)}"
+                    for x in tree_leaves(batch))
+
+
+def _numel(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel()        # a DTensor's is its global count
+    return int(getattr(x, "size", 0))
+
+
+def _batch_tokens(batch) -> int:
+    """Tokens for the throughput math: the ``tokens`` leaf's element
+    count when the batch names one, else the largest leaf's."""
+    if isinstance(batch, dict) and "tokens" in batch:
+        return _numel(batch["tokens"])
+    return max((_numel(x) for x in tree_leaves(batch)), default=0)
+
+
+def _kernel_cache_entries() -> int:
+    """Entries of the kernel build directory, the port's stand-in for the
+    reference's XLA cache count: a first call that built a kernel
+    library adds one, a call that only loaded one adds none."""
+    try:
+        return len(os.listdir(BUILD_DIR))
+    except FileNotFoundError:
+        return 0
+
+
 def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
                     device: DeviceLike = None,
                     model_flops_per_token: Optional[float] = None, *,
-                    mesh=None, param_axes=None, rules=DEFAULT_RULES):
+                    mesh=None, param_axes=None, rules=DEFAULT_RULES,
+                    session: Optional[Callable[[], Any]] = None,
+                    on_recompile: Optional[Callable[[str, str], None]] = None,
+                    compile_hit_threshold_s: float = 0.5):
     """Build ``(init_fn, step_fn, place_batch)`` for
     ``loss_fn(params, batch) -> scalar``.
 
@@ -66,6 +125,24 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
     place_batch shards by ("batch", "seq"), and the metrics are the
     global values on every rank. ``loss_fn`` runs the model with the same
     mesh (``lm_loss(..., mesh=mesh)``).
+
+    ``session`` returns the current training session or None (inside
+    ``ray_tpu.train``: ``lambda: ray_tpu.train.session._session``). When
+    it returns one with ``telemetry_on``, step_fn and place_batch are
+    instrumented as the reference's: each call is timed to the card's
+    sync (``torch.cuda.synchronize``; nothing on the CPU) and recorded in
+    ``session.timeline`` as "compile" (the first call for a batch
+    signature), "compute" or "host_to_device", and every step goes to
+    ``session.note_step`` with the batch's tokens, ``model_flops_per_token
+    * tokens`` flops, the compile kind ("cold" when the call built a
+    kernel library, else by ``compile_hit_threshold_s``, the reference's
+    ``train_compile_cache_hit_threshold_s``), the recompile flag, the batch
+    signature and ``CHIPS_PER_RANK`` chips. A new signature after the
+    first calls ``on_recompile(old, new)``. Under a mesh every rank is
+    given the whole batch and reports its tokens and flops, as every
+    process of the reference's gang does for its global batch; the
+    ledger's fold sums the ranks. Otherwise the step is the bare one,
+    with no sync.
     """
     dev = resolve_device(device)
     if mesh is not None:
@@ -123,7 +200,45 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
                 for k, t in placed.items()}
 
     step_fn.model_flops_per_token = model_flops_per_token
-    return init_fn, step_fn, place_batch
+    if session is None:
+        return init_fn, step_fn, place_batch
+    instrumenter = StepInstrumenter(
+        cache_entries=_kernel_cache_entries,
+        hit_threshold_s=compile_hit_threshold_s, on_recompile=on_recompile)
+
+    def block(out):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
+
+    def instrumented_step(state: TrainState, batch):
+        sess = session()
+        if sess is None or not sess.telemetry_on:
+            return step_fn(state, batch)
+        sig = _batch_signature(batch)
+        out = instrumenter.run(lambda: step_fn(state, batch), sig,
+                               block=block)
+        last = instrumenter.last
+        sess.timeline.record_interval(last["phase"], last["t0"], last["t1"])
+        tokens = _batch_tokens(batch)
+        sess.note_step(tokens=tokens,
+                       flops=(model_flops_per_token or 0.0) * tokens,
+                       chips=CHIPS_PER_RANK,
+                       compile_kind=last["compile_kind"],
+                       recompile=last["recompile"], batch_shape=sig)
+        return out
+
+    def instrumented_place(batch):
+        sess = session()
+        if sess is None or not sess.telemetry_on:
+            return place_batch(batch)
+        t0 = time.time()
+        placed = block(place_batch(batch))
+        sess.timeline.record_interval("host_to_device", t0, time.time())
+        return placed
+
+    instrumented_step.model_flops_per_token = model_flops_per_token
+    return init_fn, instrumented_step, instrumented_place
 
 
 def make_eval_step(loss_fn: Callable[..., torch.Tensor]):

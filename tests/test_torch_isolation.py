@@ -378,3 +378,91 @@ def test_mesh_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not dist.is_initialized()
+
+
+def test_the_walk_covers_the_runner_hooks_and_the_step_telemetry():
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.rllib.runners", "ray_tpu_torch.rllib.offline",
+              "ray_tpu_torch.train.telemetry", "ray_tpu_torch.train.step"):
+        assert m in mods, m
+
+
+def test_default_runner_hooks_and_the_session_seam_load_no_ray_tpu():
+    """In a fresh interpreter where any import of jax or ray_tpu raises:
+    PPO and IMPALA with the default hooks train an iteration on the CPU,
+    rollout_dataset hands its rows to a plain callable, and the train step
+    reports to a session object of the caller's."""
+    code = f"""
+import json, sys, tempfile, types
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ray_tpu"):
+            raise ImportError("forbidden import: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {str(REPO)!r})
+import numpy as np
+import torch
+from ray_tpu_torch.models import LLAMA_CONFIGS, init_params, lm_loss
+from ray_tpu_torch.rllib import (LOCAL, IMPALAConfig, PPOConfig,
+                                 RunnerHooks, record_rollouts,
+                                 rollout_dataset)
+from ray_tpu_torch.train import adamw, make_train_step
+
+for config in (PPOConfig(), IMPALAConfig()):
+    algo = config.env_runners(rollout_fragment_length=16).training(
+        hidden=(8,)).build(device="cpu")
+    assert algo.hooks is LOCAL and algo.train()["training_iteration"] == 1
+    algo.stop()
+tmp = tempfile.mkdtemp()
+record_rollouts("CartPole-v1", tmp, num_steps=10)
+assert len(rollout_dataset(tmp, list)) == 10
+
+notes = []
+session = types.SimpleNamespace(
+    telemetry_on=True, note_step=lambda **kw: notes.append(kw),
+    timeline=types.SimpleNamespace(record_interval=lambda *a: None))
+cfg = LLAMA_CONFIGS["tiny"]
+init_fn, step_fn, place = make_train_step(
+    lambda p, b: lm_loss(p, b, cfg), adamw(1e-3), device="cpu",
+    session=lambda: session)
+state = init_fn(init_params(cfg, seed=0, device="cpu"))
+tokens = np.zeros((2, 8), np.int32)
+state, m = step_fn(state, place({{"tokens": tokens}}))
+assert notes[0]["tokens"] == 16 and notes[0]["batch_shape"] == "(2, 8)/int32"
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(REPO),
+                         env=_no_card_env())
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_hooked_and_instrumented_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path):
+    """With no card, an algorithm built with hooks, one restored with
+    hooks, and make_train_step with a session raise naming device='cpu'
+    when the caller leaves the device to them."""
+    from ray_tpu_torch.models import lm_loss
+    from ray_tpu_torch.rllib import (LOCAL, DQNConfig, IMPALAConfig,
+                                     PPOConfig)
+    from ray_tpu_torch.rllib.ppo import PPO
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for config in (PPOConfig(), IMPALAConfig(), DQNConfig()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config.build(hooks=LOCAL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(lambda p, b: lm_loss(p, b, TINY), adamw(1e-3),
+                        session=lambda: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PPO(PPOConfig(), hooks=LOCAL)
+    path = PPOConfig().training(hidden=(8,)).build(
+        device="cpu").save_to_path(str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PPO.from_checkpoint(path, hooks=LOCAL)
