@@ -3470,6 +3470,12 @@ def _feed_pass(torch, feed, batches):
     return out, nbytes / (time.perf_counter() - t0) / 1e9
 
 
+# the marker between a trace's warm-up and its window: torch.cuda._sleep's
+# kernel, which nothing else launches
+TRACE_MARK_KERNEL = "spin_kernel"
+TRACE_MARK_CYCLES = 1000
+
+
 def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
     """1 + ``n`` steps, each in a ``data.step`` span, under the port's
     profile. The first is a warm-up, synchronized before the window of
@@ -3477,7 +3483,17 @@ def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
     device events at its start. The window's host ms, device busy ms and
     share, its host-to-device copies' ms and count (2 a step: the busy
     share is reported only when the trace holds them all), the warm-up's
-    copy count, and whether the trace file names the step's span."""
+    copy count, and whether the trace file names the step's span; beside
+    them, the copies that the host clock's edge would count and how far
+    that edge lies after the marker's end on the trace's time line.
+
+    The window's edge is taken on the card's clock: the trace puts host
+    and device events on one time line, but the two clocks may disagree
+    by more than the fraction of a millisecond between the window's
+    opening and its first copy, which then reads as the warm-up's. So a marker kernel (``torch.cuda._sleep``) runs
+    alone, with a sync before and after it, between the warm-up and the
+    window: the window's device events start after its end, the
+    warm-up's end before its start."""
     import glob
 
     from torch.autograd import DeviceType
@@ -3488,6 +3504,8 @@ def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
         with span("data.step"):
             state, m = step_fn(state, next_batch())
         torch.cuda.synchronize()
+        torch.cuda._sleep(TRACE_MARK_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         with span("data.window"):
             for _ in range(n):
@@ -3496,18 +3514,26 @@ def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith(("train.", "data."))]
+    marks = [e for e in dev if TRACE_MARK_KERNEL in e.name]
+    require(len(marks) == 1, f"data: the trace holds {len(marks)} "
+            f"{TRACE_MARK_KERNEL} markers, not 1")
+    mark = marks[0].time_range
+    window = [e for e in dev if e.time_range.start >= mark.end]
+    h2d = [e.time_range.end - e.time_range.start for e in window
+           if "HtoD" in e.name]
+    warm_h2d = sum(1 for e in dev if e.time_range.end <= mark.start
+                   and "HtoD" in e.name)
+    require(len(h2d) == 2 * n, f"data: the trace holds {len(h2d)} of the "
+            f"window's {2 * n} host-to-device copies ({warm_h2d} in the "
+            "warm-up)")
+    # what the host clock's edge (the window span's start) would count
     start = min(e.time_range.start for e in events
                 if e.name == "data.window"
                 and e.device_type == DeviceType.CPU)
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.name.startswith(("train.", "data."))]
-    window = [e for e in dev if e.time_range.start >= start]
-    h2d = [e.time_range.end - e.time_range.start for e in window
-           if "HtoD" in e.name]
-    warm_h2d = sum(1 for e in dev if e.time_range.start < start
-                   and "HtoD" in e.name)
-    require(len(h2d) == 2 * n, f"data: the trace holds {len(h2d)} of the "
-            f"window's {2 * n} host-to-device copies")
+    host_edge_h2d = sum(1 for e in dev if e.time_range.start >= start
+                        and "HtoD" in e.name)
     busy = _union_us((e.time_range.start, e.time_range.end)
                      for e in window) / 1e3
     named = any("data.step" in open(f).read()
@@ -3516,6 +3542,8 @@ def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
                       "device_busy_share": busy / wall_ms,
                       "h2d_ms": sum(h2d) / 1e3, "h2d_copies": len(h2d),
                       "warmup_h2d_copies": warm_h2d,
+                      "h2d_copies_by_host_edge": host_edge_h2d,
+                      "host_edge_after_mark_us": start - mark.end,
                       "span_in_trace": named}
 
 
