@@ -84,6 +84,18 @@ Phases, one JSON line each on stdout:
                8 times each over DeviceChannel (CUDA IPC) and over the
                Channel's tensor lane (shm): bit-equal, GB/s, the IPC lane
                against the bound of its device copies.
+     dag     - the compiled DAG with a device edge: Llama-3-8B (full width
+               and depth, bf16, seed 7) split at layer 16 into two spawned
+               processes on the card (DagStage, placed through DagHooks
+               over multiprocessing), 8 seeded [1, 2048] batches with two
+               in flight, each 16.8 MB hidden over DeviceChannel (CUDA
+               IPC), ids and last logits back over shm: every id equal to
+               one process's forward, the last logits within 1e-3, 8 IPC
+               transfers and 0 host-lane bytes in each stage, 256 flash
+               forward launches on tensor cores; ms per execution against
+               one process's forward, the edge's host time, the peaks;
+               then 6 executions traced in both stages (device busy ms,
+               the edge copies' device ms, the stages' overlap).
      grpo    - GRPO RLHF: the default `tiny` config raises its reward on
                the token-7 objective in 13 iterations; Llama 1b (full
                width and depth, bf16, seed 7) 3 iterations of G=8 over 4
@@ -3476,6 +3488,14 @@ TRACE_MARK_KERNEL = "spin_kernel"
 TRACE_MARK_CYCLES = 1000
 
 
+def _trace_mark(torch, device=None):
+    """The trace window's edge on the card's clock: a marker kernel alone,
+    synced on both sides."""
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(TRACE_MARK_CYCLES)
+    torch.cuda.synchronize(device)
+
+
 def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
     """1 + ``n`` steps, each in a ``data.step`` span, under the port's
     profile. The first is a warm-up, synchronized before the window of
@@ -3503,9 +3523,7 @@ def _traced_steps(torch, step_fn, state, next_batch, log_dir, n=2):
     with profile(log_dir, device="cuda") as prof:
         with span("data.step"):
             state, m = step_fn(state, next_batch())
-        torch.cuda.synchronize()
-        torch.cuda._sleep(TRACE_MARK_CYCLES)
-        torch.cuda.synchronize()
+        _trace_mark(torch)
         t0 = time.perf_counter()
         with span("data.window"):
             for _ in range(n):
@@ -3852,6 +3870,516 @@ def phase_channel(torch, card):
                 f"channel: the {side}'s counters {c}: want {writes} IPC "
                 "transfers and 0 host-lane bytes")
     return {}
+
+
+# --- the dag phase: Llama-3-8B split across two processes on one card ------
+
+DAG_SPLIT = 16          # stage 0: the embedding and layers [0, 16)
+DAG_EXECUTIONS = 8
+DAG_S = 2048
+DAG_SEED = 18           # the token batches' seed
+DAG_BUFFER = 1 << 21    # the shm channels' capacity (the output row: 0.5 MB)
+DAG_LOGIT_TOL = 1e-3    # last-position f32 logits, split against one
+                        # process; the same kernels on the same shapes: 0
+DAG_CALL_TIMEOUT_S = 300.0
+DAG_TRACED = 6          # executions of the traced pass, after the measured run
+
+
+def _after_mark(prof, skip=()):
+    """A trace's marker count and its device events (kernels and copies,
+    less the ranges whose names start with ``skip``) after the marker."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith(skip)]
+    marks = [e for e in dev if TRACE_MARK_KERNEL in e.name]
+    if len(marks) != 1:
+        return len(marks), []
+    edge = marks[0].time_range.end
+    return 1, [e for e in dev if e.time_range.start >= edge]
+
+
+class DagStage:
+    """One stage of a Llama (``cfg``: a LlamaConfig or a name in
+    LLAMA_CONFIGS) split at layer ``split``, the actor of the dag phase: stage 0 holds the embedding and layers [0, split), stage 1
+    layers [split, L), the final norm and the lm_head. ``forward`` runs
+    them as models/llama.py's ``forward`` runs them: stage 0 takes tokens
+    and returns the hidden, stage 1 takes the hidden and returns the
+    argmax id at every position (int32) and the last position's f32
+    logits. ``run_fn(fn, *args)`` runs ``fn(self, *args)``, the compiled
+    DAG's entry (``DagHooks.run``) in a spawned process."""
+
+    def __init__(self, cfg, stage, split, device):
+        import torch
+
+        from ray_tpu_torch.models.llama import LLAMA_CONFIGS
+
+        self.cfg = LLAMA_CONFIGS[cfg] if isinstance(cfg, str) else cfg
+        self.stage, self.split = stage, split
+        self.device = torch.device(device)
+        self.params = None
+        self.edge_ms = {"write": [], "read": []}
+        self._prof = None   # the traced pass's torch.profiler
+        if self.device.type == "cuda":
+            torch.zeros(1, device=self.device)   # the context, made early
+
+    def run_fn(self, fn, *args):
+        return fn(self, *args)
+
+    def _layers(self):
+        if self.stage == 0:
+            return slice(0, self.split)
+        return slice(self.split, self.cfg.n_layers)
+
+    def build(self, params=None):
+        """Keep this stage's part of ``params`` (a torch tree), or of the
+        seeded init (seed 7, the serving weights) on the stage's device,
+        one leaf at a time; the rest is freed. Returns the bytes kept and
+        the peak while building."""
+        import torch
+
+        from ray_tpu_torch.models.llama import init_params
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        # shallow copies, popped leaf by leaf: the caller's tree stays
+        # whole, and a seeded tree's leaves are freed as they are sliced
+        full = dict(params if params is not None
+                    else init_params(self.cfg, seed=7, device=self.device))
+        layers = dict(full.pop("layers"))
+        keep = self._layers()
+        self.params = {"layers": {k: layers.pop(k)[keep].clone()
+                                  for k in sorted(layers)}}
+        names = (("embed",) if self.stage == 0
+                 else ("final_norm", "lm_head"))
+        self.params.update({k: full[k] for k in names})
+        del full, layers
+        nbytes = sum(t.nbytes for t in self.params["layers"].values()) + sum(
+            self.params[k].nbytes for k in names)
+        peak = None
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            torch.cuda.empty_cache()
+        return {"bytes": nbytes, "build_peak_bytes": peak}
+
+    def forward(self, x):
+        import torch
+
+        from ray_tpu_torch._private.tree import layer_params
+        from ray_tpu_torch.models.llama import _layer_body
+        from ray_tpu_torch.ops import rms_norm, rope_frequencies
+        from ray_tpu_torch.ops.quant import logits_matmul
+        from ray_tpu_torch.parallel.sharding import DEFAULT_RULES
+
+        cfg, p = self.cfg, self.params
+        with torch.no_grad():
+            if self.stage == 0:
+                x = p["embed"][x.to(self.device).long()]
+            cos, sin = rope_frequencies(cfg.head_dim, x.shape[1],
+                                        cfg.rope_theta, device=x.device)
+            body = _layer_body(cfg)
+            n = self._layers().indices(cfg.n_layers)
+            for li in range(n[1] - n[0]):
+                x, _ = body(x, layer_params(p["layers"], li), cfg, cos, sin,
+                            None, DEFAULT_RULES)
+            if self.stage == 0:
+                return x
+            x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+            logits = logits_matmul(x.to(cfg.dtype), p["lm_head"].to(cfg.dtype))
+            # the last row as a tensor of its own: a view would carry the
+            # whole logits through the output channel
+            return {"ids": logits.argmax(-1).to(torch.int32),
+                    "last": logits[:, -1].clone()}
+
+    def _warm(self, S):
+        """A forward of zeros at the phase's shape."""
+        import torch
+
+        cfg = self.cfg
+        self.forward(
+            torch.zeros((1, S), dtype=torch.int32, device=self.device)
+            if self.stage == 0 else
+            torch.zeros((1, S, cfg.dim), dtype=cfg.dtype, device=self.device))
+
+    def prepare(self, S):
+        """A warm-up forward at the phase's shape, then every count of
+        this process set to 0, the peak reset, and the DeviceChannel's
+        IPC write and read host times recorded from here on."""
+        import torch
+
+        from ray_tpu_torch.experimental import DeviceChannel
+
+        self._warm(S)
+        _zero_counts()
+        DeviceChannel.ipc_transfers = DeviceChannel.host_lane_bytes = 0
+        for name, side in (("_write_ipc", "write"), ("_read_ipc", "read")):
+            orig = getattr(DeviceChannel, name)
+
+            def timed(ch, *args, _orig=orig, _side=side):
+                if self._prof is not None:
+                    # the traced pass: the edge's device copies by range
+                    with torch.profiler.record_function(f"dag.edge_{_side}"):
+                        return _orig(ch, *args)
+                t0 = time.perf_counter()
+                try:
+                    return _orig(ch, *args)
+                finally:
+                    self.edge_ms[_side].append(
+                        (time.perf_counter() - t0) * 1e3)
+
+            setattr(DeviceChannel, name, timed)
+        self.allocated_before = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            self.allocated_before = torch.cuda.memory_allocated(self.device)
+        return True
+
+    def trace_begin(self, S):
+        """Start torch.profiler (CPU and CUDA) in this process, run a
+        warm-up forward at the phase's shape ``S`` under it (the profiler
+        may lose events, and take its own time, at its start), then a
+        marker alone, synced on both sides (_trace_mark): the traced
+        window's device events are those after the marker. Counts are
+        not reset: stats() has read them. Returns True."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize(self.device)
+        self._prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._warm(S)
+        _trace_mark(torch, self.device)
+        self._host_ns = [time.time_ns()]
+        return True
+
+    def trace_end(self):
+        """Stop the profiler and read the window after the marker: its
+        device busy ms (the union of kernel and copy intervals), the device
+        ms of the copies launched inside the edge's IPC write and read
+        (each op's kernels, by the trace's correlation), every
+        device-to-device copy's ms, and the window's merged busy intervals
+        in absolute microseconds of the trace's clock, with the host's
+        unix-clock edges of the window beside them, so that the driver can
+        intersect the two stages' intervals once both clocks agree."""
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize(self.device)
+        self._host_ns.append(time.time_ns())
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        events = prof.events()
+        base_us = prof.profiler.kineto_results.trace_start_ns() / 1e3
+        marks, dev = _after_mark(prof, skip=("dag.",))
+        if marks != 1:
+            return {"marks": marks}
+        window = sorted((e.time_range.start, e.time_range.end) for e in dev)
+        merged = []
+        for a, b in window:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        cpu = [e for e in events if e.device_type == DeviceType.CPU]
+        copies = {side: [sum(k.duration for e in cpu
+                             if e is not r and e.thread == r.thread
+                             and r.time_range.start <= e.time_range.start
+                             and e.time_range.end <= r.time_range.end
+                             for k in e.kernels) / 1e3
+                         for r in cpu if r.name == f"dag.edge_{side}"]
+                  for side in ("write", "read")}
+        return {"marks": 1, "events": len(window),
+                "busy_ms": _union_us(window) / 1e3,
+                "host_us": [t / 1e3 for t in self._host_ns],
+                "intervals_us": [(base_us + a, base_us + b)
+                                 for a, b in merged],
+                "edge_copy_ms": copies,
+                "dtod_ms": sorted((e.time_range.end - e.time_range.start)
+                                  / 1e3 for e in dev if "DtoD" in e.name)}
+
+    def stats(self):
+        """This process's counts since ``prepare``, the edge's host times,
+        its run peak, and the bytes it holds now against those it held
+        after ``prepare`` (a staged block not freed shows here)."""
+        import os
+
+        import torch
+
+        from ray_tpu_torch.experimental import DeviceChannel
+
+        out = {"pid": os.getpid(), **_train_counts(),
+               "ipc_transfers": DeviceChannel.ipc_transfers,
+               "host_lane_bytes": DeviceChannel.host_lane_bytes,
+               "edge_ms": self.edge_ms,
+               "allocated_before": self.allocated_before,
+               "allocated_after": None, "run_peak_bytes": None}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            out["allocated_after"] = torch.cuda.memory_allocated(self.device)
+            out["run_peak_bytes"] = torch.cuda.max_memory_allocated(
+                self.device)
+        return out
+
+
+def _dag_run(compiled, batches):
+    """``batches`` through ``compiled`` with two in flight: the outputs and
+    the host ms between successive results."""
+    outs, ms = [], []
+    t = time.perf_counter()
+    refs = [compiled.execute(batches[0])]
+    for i in range(1, len(batches) + 1):
+        if i < len(batches):
+            refs.append(compiled.execute(batches[i]))
+        outs.append(refs[i - 1].get(timeout=DAG_CALL_TIMEOUT_S))
+        now = time.perf_counter()
+        ms.append((now - t) * 1e3)
+        t = now
+    return outs, ms
+
+
+def dag_pipeline(torch, cfg, split, device, batches, params=None, traced=0):
+    """Llama ``cfg`` split at ``split`` into two DagStage processes
+    (spawned, on ``device``), ``stage1.forward.bind(stage0.forward.bind(
+    inp).with_device_transport())`` compiled over MpRunners' DagHooks with
+    max_inflight=2, and ``batches`` executed with two in flight. The
+    stages keep their parts of ``params`` (a torch tree; None: the seeded
+    init, seed 7). With ``traced`` > 0 (the card only), a second compile
+    then runs the first ``traced`` batches under torch.profiler in both
+    stages. Returns the outputs, the host ms between successive results,
+    the stages' build and run stats, the channels' paths, the processes'
+    exit codes, and the traced pass (None without one): its outputs, its
+    host ms and each stage's ``trace_end``."""
+    from ray_tpu_torch.dag import InputNode, actor
+
+    pool = MpRunners()
+    stages = [pool._spawn(DagStage, (cfg, s, split, device))
+              for s in (0, 1)]
+
+    def compile_dag():
+        with InputNode() as inp:
+            dag = actor(stages[1]).forward.bind(
+                actor(stages[0]).forward.bind(inp).with_device_transport())
+        compiled = dag.experimental_compile(
+            hooks=pool.dag_hooks(), device=device,
+            buffer_size_bytes=DAG_BUFFER, max_inflight=2)
+        paths.extend(ch.path for ch in compiled._channels)
+        return compiled
+
+    paths, trace = [], None
+    try:
+        built = pool.get([s.build.remote(params) for s in stages],
+                         DAG_CALL_TIMEOUT_S)
+        pool.get([s.prepare.remote(batches[0].shape[1]) for s in stages],
+                 DAG_CALL_TIMEOUT_S)
+        compiled = compile_dag()
+        try:
+            outs, ms = _dag_run(compiled, batches)
+        finally:
+            compiled.teardown()
+        stats = pool.get([s.stats.remote() for s in stages],
+                         DAG_CALL_TIMEOUT_S)
+        if traced:
+            pool.get([s.trace_begin.remote(batches[0].shape[1])
+                      for s in stages], DAG_CALL_TIMEOUT_S)
+            compiled = compile_dag()
+            try:
+                t_outs, t_ms = _dag_run(compiled, batches[:traced])
+            finally:
+                compiled.teardown()
+            trace = (t_outs, t_ms, pool.get(
+                [s.trace_end.remote() for s in stages], DAG_CALL_TIMEOUT_S))
+    finally:
+        for s in stages:
+            pool.kill(s)
+    exits = [s.proc.exitcode for s in stages]
+    return outs, ms, built, stats, paths, exits, trace
+
+
+def _dag_trace_summary(traces, n):
+    """The traced pass's two stages (``trace_end``'s dicts, ``n``
+    executions): each stage's device busy ms an execution and its edge
+    copies' device ms; then, where both stages' device events lie within
+    their host windows on the unix clock (1 ms of slack), the card's busy
+    ms an execution over both processes (the union of their intervals),
+    the ms in which the two stages' intervals intersect, and the idle
+    share of the span from the first device event to the last. Without
+    MPS the card runs one process's context at a time, and a kernel
+    switched out mid-run keeps its interval open meanwhile: the
+    intersection bounds the stages' concurrency from above, and the
+    union against one process's busy ms is the test of it."""
+    out = {"executions": n, "stages": []}
+    for i, t in enumerate(traces):
+        if t.get("marks") != 1:
+            out["stages"].append({"marks": t.get("marks")})
+            continue
+        iv = t["intervals_us"]
+        lo, hi = t["host_us"]
+        out["stages"].append({
+            "events": t["events"], "busy_ms_per_execution": t["busy_ms"] / n,
+            "edge_copy_ms": t["edge_copy_ms"],
+            "dtod_copies": len(t["dtod_ms"]),
+            "dtod_ms_largest": t["dtod_ms"][-2 * n:],
+            "device_in_host_window": bool(iv) and (
+                iv[0][0] >= lo - 1e3 and iv[-1][1] <= hi + 1e3),
+            "device_first_after_host_us": iv[0][0] - lo if iv else None})
+    if not all(s.get("device_in_host_window") for s in out["stages"]):
+        out["overlap"] = ("not measured: a stage's trace lacks its marker, "
+                          "or its device events lie outside its host window")
+        return out
+    both = [iv for t in traces for iv in t["intervals_us"]]
+    busy0, busy1 = (_union_us(t["intervals_us"]) for t in traces)
+    union = _union_us(both)
+    span = max(b for _, b in both) - min(a for a, _ in both)
+    out.update({"card_busy_ms_per_execution": union / 1e3 / n,
+                "intersection_ms_per_execution":
+                    (busy0 + busy1 - union) / 1e3 / n,
+                "span_ms": span / 1e3, "idle_share": 1 - union / span})
+    return out
+
+
+def phase_dag(torch, card):
+    """The compiled DAG with a device edge: Llama-3-8B (full width and
+    depth, bf16, seed 7) split at layer 16 into two spawned processes on
+    the card, the 16.8 MB bf16 hidden of each of 8 seeded [1, 2048] token
+    batches over DeviceChannel (CUDA IPC), the ids and last logits back
+    to this process over shm. Held against one process's ``forward`` on
+    the same card and params: every id equal, the last logits within
+    DAG_LOGIT_TOL; every hidden over IPC in both stages, none on the host
+    lane; 256 flash forward launches, all tensor-core; both processes exit
+    0, no channel file left, and each stage's memory back after
+    teardown. ms per execution against one process's forward, the edge's
+    host time, and each process's peak. Then DAG_TRACED more executions
+    under torch.profiler in both stages (the ``dag_trace`` line): each
+    stage's device busy ms, the edge copies' device ms, and the card's
+    busy ms and the stages' overlap over both processes."""
+    import os
+
+    from ray_tpu_torch.models.llama import LLAMA_CONFIGS, forward, init_params
+
+    t_phase = time.perf_counter()
+    _fresh_phase(torch)
+    cfg = LLAMA_CONFIGS["8b"]
+    g = torch.Generator().manual_seed(DAG_SEED)
+    batches = [torch.randint(0, cfg.vocab, (1, DAG_S), generator=g,
+                             dtype=torch.int32)
+               for _ in range(DAG_EXECUTIONS)]
+    # the one-process forward on the same card and params
+    params = init_params(cfg, seed=7, device="cuda")
+    want, ref_ms = [], []
+    with torch.no_grad():
+        forward(params, batches[0].cuda(), cfg)          # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        for tokens in batches:
+            t0 = time.perf_counter()
+            logits = forward(params, tokens.cuda(), cfg)
+            want.append((logits.argmax(-1).to(torch.int32),
+                         logits[:, -1].clone()))
+            del logits
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+    ref_counts = _train_counts()
+    driver_peak = torch.cuda.max_memory_allocated()
+    # the same forward's device busy ms, traced as the stages are: a
+    # warm-up forward under the profiler, the marker, then one forward
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            torch.no_grad():
+        for mark in (True, False):
+            forward(params, batches[0].cuda(), cfg)
+            if mark:
+                _trace_mark(torch)
+        torch.cuda.synchronize()
+    marks, dev = _after_mark(prof)
+    ref_busy_ms = (_union_us((e.time_range.start, e.time_range.end)
+                             for e in dev) / 1e3
+                   if marks == 1 else "not measured")
+    del params, prof, dev
+    _fresh_phase(torch)
+
+    outs, ms, built, stats, paths, exits, trace = dag_pipeline(
+        torch, "8b", DAG_SPLIT, "cuda", batches, traced=DAG_TRACED)
+    t_outs, t_ms, traces = trace
+    traced_ids_equal = sum(int((o["ids"].cpu() == w[0].cpu()).sum())
+                           for o, w in zip(t_outs, want))
+    ids_equal = sum(int((o["ids"].cpu() == w[0].cpu()).sum())
+                    for o, w in zip(outs, want))
+    logit_err = max(_max_err(o["last"].float(), w[1].float())
+                    for o, w in zip(outs, want))
+    hidden_bytes = DAG_S * cfg.dim * 2
+    peaks = [driver_peak] + [max(b["build_peak_bytes"], s["run_peak_bytes"])
+                             for b, s in zip(built, stats)]
+    leftover = [s["allocated_after"] - s["allocated_before"] for s in stats]
+    launches = {k: sum(s[k] for s in stats)
+                for k in ("flash_fwd", "flash_fwd_tc")}
+    emit({"phase": "dag", "model": "8b", "split_at_layer": DAG_SPLIT,
+          "executions": DAG_EXECUTIONS, "tokens": [1, DAG_S],
+          "hidden_bytes": hidden_bytes,
+          "ms_per_execution": {"median": sorted(ms)[len(ms) // 2],
+                               "min": min(ms), "max": max(ms), "all": ms},
+          "one_process_forward_ms": {
+              "median": sorted(ref_ms)[len(ref_ms) // 2],
+              "min": min(ref_ms), "max": max(ref_ms), "all": ref_ms},
+          "edge_host_ms": {f"stage{i}": {side: {
+              "median": sorted(v)[len(v) // 2] if v else None,
+              "max": max(v, default=None), "n": len(v)}
+              for side, v in s["edge_ms"].items()}
+              for i, s in enumerate(stats)},
+          "ids_equal": ids_equal, "ids_total": DAG_EXECUTIONS * DAG_S,
+          "last_logit_max_abs_err": logit_err,
+          "last_logit_tol": DAG_LOGIT_TOL,
+          "stage_counts": [{k: s[k] for k in (
+              "pid", "ipc_transfers", "host_lane_bytes", "flash_fwd",
+              "flash_fwd_tc")} for s in stats],
+          "flash_fwd_launches": launches,
+          "one_process_flash_fwd_launches": ref_counts["flash_fwd"],
+          "peak_gb": {"driver": peaks[0] / 1e9, "stage0": peaks[1] / 1e9,
+                      "stage1": peaks[2] / 1e9, "sum": sum(peaks) / 1e9},
+          "stage_run_peak_gb": [s["run_peak_bytes"] / 1e9 for s in stats],
+          "stage_bytes_gb": [b["bytes"] / 1e9 for b in built],
+          "leftover_after_teardown_bytes": leftover,
+          "exit_codes": exits,
+          "channel_files_left": [p for p in paths if os.path.exists(p)],
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": card})
+    emit({"phase": "dag_trace", "model": "8b",
+          "traced_ms_per_execution": t_ms,
+          "one_process_forward_device_busy_ms": ref_busy_ms,
+          **_dag_trace_summary(traces, DAG_TRACED),
+          "traced_ids_equal": traced_ids_equal, "nvidia_smi": card})
+    require(ids_equal == DAG_EXECUTIONS * DAG_S,
+            f"dag: {DAG_EXECUTIONS * DAG_S - ids_equal} argmax ids differ "
+            "from one process's forward")
+    require(logit_err <= DAG_LOGIT_TOL,
+            f"dag: last logits {logit_err} from one process's, over "
+            f"{DAG_LOGIT_TOL}")
+    for i, s in enumerate(stats):
+        require(s["ipc_transfers"] == DAG_EXECUTIONS
+                and s["host_lane_bytes"] == 0,
+                f"dag: stage {i} counted {s['ipc_transfers']} IPC transfers "
+                f"and {s['host_lane_bytes']} host-lane bytes: want "
+                f"{DAG_EXECUTIONS} and 0")
+    want_fwd = 2 * DAG_SPLIT * DAG_EXECUTIONS
+    require(launches == {"flash_fwd": want_fwd, "flash_fwd_tc": want_fwd},
+            f"dag: flash launches {launches}: want {want_fwd}, all "
+            "tensor-core")
+    require(exits == [0, 0], f"dag: the stages exited {exits}")
+    require(not any(os.path.exists(p) for p in paths),
+            "dag: a channel file outlived teardown")
+    require(leftover == [0, 0],
+            f"dag: a stage holds {leftover} bytes more after teardown than "
+            "before the run")
+    require(traced_ids_equal == DAG_TRACED * DAG_S,
+            f"dag: {DAG_TRACED * DAG_S - traced_ids_equal} argmax ids of the "
+            "traced pass differ from one process's forward")
+    require(sum(peaks) < 80e9, f"dag: the processes' peaks sum to "
+            f"{sum(peaks) / 1e9:.1f} GB")
+    return launches
 
 
 def phase_reference(torch):
@@ -4643,7 +5171,8 @@ class _MpHandle:
 
 class MpRunners:
     """Runner placement over spawned processes: ``hooks()`` is a
-    RunnerHooks whose remote, get, wait and kill are this object's."""
+    RunnerHooks whose remote, get, wait and kill are this object's, and
+    ``dag_hooks()`` a compiled DAG's DagHooks over the same processes."""
 
     def __init__(self):
         self.handles = []
@@ -4664,6 +5193,15 @@ class MpRunners:
 
         return RunnerHooks(remote=remote, get=self.get, wait=self.wait,
                            kill=self.kill)
+
+    def dag_hooks(self):
+        """A DagHooks over the same processes: each handle's object runs
+        ``fn(self, *args)`` through its ``run_fn`` method (DagStage's)."""
+        from ray_tpu_torch.dag import DagHooks
+
+        return DagHooks(actor_key=lambda h: str(h.proc.pid),
+                        run=lambda h, fn, *a: h.call("run_fn", (fn, *a)),
+                        get=self.get)
 
     def _spawn(self, cls, args):
         handle = _MpHandle(self, cls, args)
@@ -5564,7 +6102,7 @@ def main() -> int:
     all_phases = ["build", "parity", "engine", "engine_8k", "spec", "lora",
                   "fleet", "serve", "hf", "train", "parallel", "moe",
                   "moe_train", "mamba",
-                  "clip", "resnet", "data", "channel", "grpo", "rl",
+                  "clip", "resnet", "data", "channel", "dag", "grpo", "rl",
                   "reference", "timing"]
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else all_phases
     try:
@@ -5608,7 +6146,8 @@ def main() -> int:
                             ("moe_train", phase_moe_train),
                             ("mamba", phase_mamba), ("clip", phase_clip),
                             ("resnet", phase_resnet), ("data", phase_data),
-                            ("channel", phase_channel), ("grpo", phase_grpo),
+                            ("channel", phase_channel), ("dag", phase_dag),
+                            ("grpo", phase_grpo),
                             ("rl", phase_rl)):
             if name in phases:
                 counts = phase(torch, card)

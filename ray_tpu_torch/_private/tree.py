@@ -18,17 +18,19 @@ def tree_leaves(tree) -> List[Any]:
 
 def tree_unflatten(tree, leaves):
     """``tree``'s structure with ``leaves`` in ``tree_leaves``'s order."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def walk(node):
-        if isinstance(node, dict):
-            done = {k: walk(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return next(it)
 
-    return walk(tree)
+def _fill(node, it):
+    # a module function, not a closure that calls itself: such a closure
+    # is a reference cycle, which would keep every leaf alive until the
+    # cyclic collector runs
+    if isinstance(node, dict):
+        done = {k: _fill(node[k], it) for k in sorted(node)}
+        return {k: done[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_fill(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

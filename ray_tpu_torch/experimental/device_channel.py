@@ -27,7 +27,7 @@ are not:
   completed: the reader's mapping holds PyTorch's IPC reference count on
   it, and the reader synchronizes its stream before it lets the mapping
   go. The writer frees released blocks (``torch.cuda.ipc_collect``) at
-  each write.
+  each write and when it closes the channel.
 - An IPC handle cannot be opened by the process that made it. A reader in
   the writer's process takes the staged block from this process's table
   of staged payloads and copies it directly. The writer keeps its blocks
@@ -96,16 +96,18 @@ def _flatten(tree) -> Tuple[List[Any], Any]:
 
 def _unflatten(skeleton, leaves: List[Any]):
     """The inverse of :func:`_flatten`: leaves in tree_leaves' order."""
-    it = iter(leaves)
+    return _fill(skeleton, iter(leaves))
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return next(it)
 
-    return walk(skeleton)
+def _fill(node, it):
+    # a module function, not a closure that calls itself: such a closure
+    # is a reference cycle, which would keep every payload read alive
+    # until the cyclic collector runs
+    if isinstance(node, dict):
+        return {k: _fill(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_fill(v, it) for v in node)
+    return next(it)
 
 
 def _specs(flat: List[torch.Tensor]):
@@ -147,6 +149,7 @@ class DeviceChannel:
         self.path = self._control.path
         self.device = device
         self._uids: List[int] = []   # this writer's uids in _staged
+        self._shared = False         # this end has staged an IPC payload
         with _server_lock:
             _open[self.path] = _open.get(self.path, 0) + 1
         self._registered = True
@@ -212,6 +215,7 @@ class DeviceChannel:
                 self._uids.append(uid)
                 if len(self._uids) > 2:
                     _staged.pop(self._uids.pop(0), None)
+        self._shared = True
         DeviceChannel.ipc_transfers += 1
 
     def _write_host(self, flat, skeleton, timeout):
@@ -305,6 +309,10 @@ class DeviceChannel:
                     del _open[self.path]
         self._uids.clear()
         self._control.close()
+        if self._shared:
+            # free the staged blocks whose readers have let them go, so a
+            # closed channel's blocks do not wait for a later write
+            torch.cuda.ipc_collect()
 
     def unlink(self) -> None:
         self._control.unlink()

@@ -379,3 +379,28 @@ def test_port_device_channel_tree_structure_and_device_flag():
     finally:
         ch.close()
         ch.unlink()
+
+
+def test_port_device_channel_read_is_freed_without_the_cyclic_collector():
+    """What a reader took is freed when its last reference goes: the read
+    path makes no reference cycle, which would keep each payload (a
+    compiled DAG stage's 16.8 MB hidden on the card) until the cyclic
+    collector happened to run."""
+    import gc
+    import weakref
+
+    ch = DeviceChannel(device="cpu")
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        reader = DeviceChannel(ch.path, device="cpu")
+        ch.write({"a": torch.ones(3), "b": [torch.zeros(2)]}, timeout=5)
+        got = reader.read(timeout=30)
+        refs = [weakref.ref(got["a"]), weakref.ref(got["b"][0])]
+        del got
+        assert [r() for r in refs] == [None, None]
+    finally:
+        if enabled:
+            gc.enable()
+        ch.close()
+        ch.unlink()

@@ -1144,8 +1144,8 @@ def test_device_channel_in_one_process_copies_directly(gen):
     from ray_tpu_torch.experimental import DeviceChannel
 
     ch = DeviceChannel()
+    reader = DeviceChannel(ch.path, device="cuda")
     try:
-        reader = DeviceChannel(ch.path, device="cuda")
         for i in range(3):
             t = {"k": [_randn(gen, (5, 7), torch.bfloat16)],
                  "v": _randn(gen, (3,))}
@@ -1157,8 +1157,108 @@ def test_device_channel_in_one_process_copies_directly(gen):
             assert torch.equal(got["v"], want["v"])
             assert got["v"].data_ptr() != t["v"].data_ptr()
     finally:
+        reader.close()
         ch.close()
         ch.unlink()
+
+
+def _tiny_bf16():
+    import dataclasses
+
+    from ray_tpu_torch.models import LLAMA_CONFIGS
+
+    return dataclasses.replace(LLAMA_CONFIGS["tiny"], dtype=torch.bfloat16)
+
+
+def _split_forward_want(cfg, batches):
+    """One process's forward of the seeded (seed 7) params on the card:
+    (argmax ids as int32, last-position logits) a batch."""
+    from ray_tpu_torch.models.llama import forward
+
+    params = init_params(cfg, seed=7, device="cuda")
+    with torch.no_grad():
+        out = [forward(params, b.cuda(), cfg) for b in batches]
+    return [(o.argmax(-1).to(torch.int32), o[:, -1]) for o in out]
+
+
+def _dag_batches(cfg, n, S=24):
+    g = torch.Generator().manual_seed(18)
+    return [torch.randint(0, cfg.vocab, (1, S), generator=g,
+                          dtype=torch.int32) for _ in range(n)]
+
+
+def test_dag_device_edge_between_two_spawned_processes_on_card(gen):
+    """chip_smoke.py's dag pipeline on ``tiny`` in bf16: the two stages in
+    spawned processes on the card, every hidden over CUDA IPC (none on the
+    host lane) on both sides, the ids and last logits equal to one
+    process's forward (the traced pass's too), the trace holds the edge's
+    device copies, both processes exit 0 and no channel file is left."""
+    import os
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    cfg = _tiny_bf16()
+    batches = _dag_batches(cfg, 4)
+    outs, _, _, stats, paths, exits, trace = chip_smoke.dag_pipeline(
+        torch, cfg, 1, "cuda", batches, traced=2)
+    want = _split_forward_want(cfg, batches)
+    for o, (ids, last) in zip(outs + trace[0], want + want[:2]):
+        assert torch.equal(o["ids"].cpu(), ids.cpu())
+        assert torch.equal(o["last"].cpu(), last.cpu())
+    # the traced pass: one marker a stage, and a device copy inside each
+    # of the edge's two IPC writes and two reads
+    for t, side in zip(trace[2], ("write", "read")):
+        assert t["marks"] == 1 and t["busy_ms"] > 0
+        assert len(t["edge_copy_ms"][side]) == 2
+        assert all(ms > 0 for ms in t["edge_copy_ms"][side])
+    assert [(s["ipc_transfers"], s["host_lane_bytes"]) for s in stats] == \
+        [(4, 0), (4, 0)]
+    assert [s["flash_fwd"] for s in stats] == [4, 4]
+    assert [s["allocated_after"] - s["allocated_before"] for s in stats] \
+        == [0, 0]
+    assert exits == [0, 0]
+    assert not any(os.path.exists(p) for p in paths)
+
+
+def test_dag_device_edge_under_local_hooks_raises_on_card(gen):
+    """The same split under the LOCAL hooks, compiled for the card: both
+    stages would share this process, which cannot open its own CUDA IPC
+    handles, so the compile raises before any loop starts, leaves no
+    channel file, and every DeviceChannel end that this file's tests
+    opened in this process is closed."""
+    import os
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from ray_tpu_torch.dag import InputNode, actor
+    from ray_tpu_torch.dag import compiled as dag_compiled
+    from ray_tpu_torch.experimental import device_channel
+
+    cfg = _tiny_bf16()
+    stages = [chip_smoke.DagStage(cfg, s, 1, "cuda") for s in (0, 1)]
+    with InputNode() as inp:
+        dag = actor(stages[1]).forward.bind(
+            actor(stages[0]).forward.bind(inp).with_device_transport())
+    made = []
+    channel = dag_compiled.Channel
+
+    def recorded(*args, **kwargs):
+        made.append(channel(*args, **kwargs))
+        return made[-1]
+
+    dag_compiled.Channel = recorded
+    try:
+        with pytest.raises(ValueError, match="cannot open its own IPC"):
+            dag.experimental_compile(max_inflight=2)
+    finally:
+        dag_compiled.Channel = channel
+    assert len(made) == 1 and not os.path.exists(made[0].path)
+    assert not device_channel._open and not device_channel._staged
 
 
 def test_channel_tensor_lane_carries_a_cuda_tensor(gen):

@@ -466,3 +466,70 @@ def test_hooked_and_instrumented_entry_points_raise_without_a_card(
         device="cpu").save_to_path(str(tmp_path / "ck"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PPO.from_checkpoint(path, hooks=LOCAL)
+
+
+def test_the_walk_covers_the_compiled_dag():
+    mods = _port_modules()
+    for m in ("ray_tpu_torch.dag", "ray_tpu_torch.dag.nodes",
+              "ray_tpu_torch.dag.compiled"):
+        assert m in mods, m
+
+
+def test_the_compiled_dag_under_local_hooks_loads_no_ray_tpu():
+    """In a fresh interpreter where any import of jax or ray_tpu raises: a
+    compiled DAG under the default hooks, with a device edge of CPU
+    tensors, an allreduce and a driver output, runs and tears down."""
+    code = f"""
+import json, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ray_tpu"):
+            raise ImportError("forbidden import: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {str(REPO)!r})
+import torch
+from ray_tpu_torch.dag import InputNode, MultiOutputNode, actor, collective
+
+class Scale:
+    def __init__(self, k):
+        self.k = k
+    def f(self, x):
+        return x * self.k
+
+a, b = Scale(2.0), Scale(3.0)
+with InputNode() as inp:
+    edge = actor(b).f.bind(actor(a).f.bind(inp).with_device_transport())
+    root = MultiOutputNode(collective.allreduce.bind(
+        [edge, actor(a).f.bind(inp)]))
+compiled = root.experimental_compile(device="cpu")
+out = compiled.execute(torch.ones(2)).get(timeout=60)
+compiled.teardown()
+assert [o.tolist() for o in out] == [[8.0, 8.0], [8.0, 8.0]]
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(REPO),
+                         env=_no_card_env())
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_compiled_dag_raises_without_a_card(monkeypatch):
+    """With no card, a compile that leaves the device to the port raises
+    naming device='cpu'."""
+    from ray_tpu_torch.dag import InputNode, actor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Echo:
+        def f(self, x):
+            return x
+
+    with InputNode() as inp:
+        root = actor(Echo()).f.bind(inp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        root.experimental_compile()

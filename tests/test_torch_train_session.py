@@ -226,6 +226,21 @@ def test_without_a_session_the_step_is_bare_and_never_syncs(monkeypatch):
 
 # --- inside a ray_tpu.train Trainer ------------------------------------------
 
+def test_a_config_read_before_the_cluster_is_replaced_by_its_settings(
+        monkeypatch):
+    """Reads this process's ray_tpu config, as an earlier test file on the
+    same worker may, before ``trainer_cluster`` first starts: the cached
+    copy has no peak. The fixture must set its values on the config that
+    the in-process GCS reads, or the jobs' ledgers fold no MFU."""
+    from ray_tpu._private.config import global_config, reset_global_config
+
+    monkeypatch.delenv("RAY_TPU_TRAIN_PEAK_FLOPS_PER_CHIP", raising=False)
+    reset_global_config()
+    stale = global_config()
+    assert stale.train_peak_flops_per_chip == 0.0
+    assert global_config() is stale
+
+
 @pytest.fixture(scope="module")
 def trainer_cluster(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
@@ -235,6 +250,13 @@ def trainer_cluster(tmp_path_factory):
                   str(tmp_path_factory.mktemp("xla_cache")))
         mp.setenv("RAY_TPU_TRAIN_COMPILE_CACHE_HIT_THRESHOLD_S", "0")
         mp.setenv("RAY_TPU_TRAIN_PEAK_FLOPS_PER_CHIP", "1e12")
+        # the workers read the environment when they start; this process
+        # reads its config once and caches it, perhaps before this fixture
+        # ran, so it is read again from the environment set above
+        from ray_tpu._private.config import global_config, reset_global_config
+
+        reset_global_config()
+        assert global_config().train_peak_flops_per_chip == 1e12
         ray_tpu.init(num_cpus=4)
         try:
             yield

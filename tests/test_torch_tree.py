@@ -20,7 +20,7 @@ from ray_tpu.models import clip as jclip
 from ray_tpu.models import vision as jvision
 
 from ray_tpu_torch._private.tree import (is_layer_group, tree_leaves,
-                                         unstack_layers)
+                                         tree_unflatten, unstack_layers)
 from ray_tpu_torch.models import (CLIP_CONFIGS, LLAMA_CONFIGS, MAMBA_CONFIGS,
                                   RESNET_CONFIGS, init_clip, init_mamba,
                                   init_params, init_resnet, opt_state_from_jax,
@@ -101,6 +101,32 @@ def test_resnet_lists_stay_lists_in_and_out():
     assert "proj" in back["stages"][1][0]
     np.testing.assert_array_equal(back["stages"][1][0]["proj"],
                                   params["stages"][1][0]["proj"].numpy())
+
+
+def test_tree_unflatten_keeps_order_and_frees_leaves_without_the_collector():
+    """``tree_unflatten`` is ``tree_leaves``'s inverse (dict order kept,
+    lists and tuples kept), and the tree it builds is freed when its last
+    reference goes: the rebuild makes no reference cycle, which would keep
+    every leaf (a pipeline stage's params) until the cyclic collector
+    happened to run."""
+    import gc
+    import weakref
+
+    skeleton = {"b": [0, (0, 0)], "a": {"y": 0, "x": 0}}
+    leaves = [torch.full((2,), float(i)) for i in range(5)]
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = tree_unflatten(skeleton, leaves)
+        assert list(out) == ["b", "a"] and list(out["a"]) == ["y", "x"]
+        assert isinstance(out["b"], list) and isinstance(out["b"][1], tuple)
+        assert all(a is b for a, b in zip(tree_leaves(out), leaves))
+        refs = [weakref.ref(t) for t in leaves]
+        del out, leaves
+        assert [r() for r in refs] == [None] * 5
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def test_params_to_numpy_stacks_nested_groups_again():
