@@ -37,6 +37,7 @@ from .._private.config import global_config
 from .._private.device import resolve_device
 from ..models.llama import LlamaConfig
 from ..ops import rope_frequencies
+from ..util import tracing
 from .cache import PageAllocator, PrefixCache, SequenceTable, init_kv_cache
 from .lora import LoRAPool, init_lora_adapter
 from .runner import (decode_burst, prefill_bucket, prefill_chunk,
@@ -245,7 +246,26 @@ class LLMEngine:
         advance ONE prefill work unit (a whole prompt, or one chunk),
         then one decode burst for every decoding slot. ``skip_decode``
         runs only the admission/prefill phase."""
-        outputs: List[StepOutput] = []
+        with tracing.span("engine.step"):
+            outputs: List[StepOutput] = []
+            with tracing.span("engine.admit"):
+                pref = self._admit_and_pick()
+            if pref is not None:
+                outputs.extend(self._run_prefill(pref))
+                if pref.ctx_len > 0 or pref.slot < 0 or pref.finished:
+                    try:
+                        self._prefill_queue.remove(pref)
+                    except ValueError:
+                        pass
+            if not skip_decode and any(
+                    s is not None and s.ctx_len > 0 for s in self.slots):
+                outputs.extend(self._run_decode())
+            return outputs
+
+    def _admit_and_pick(self) -> Optional[RequestState]:
+        """Admit waiting requests into free slots, up to the cap of
+        admitted-but-unprefilled ones, and pick this round's prefill
+        unit."""
         if any(s.slot < 0 or s.finished for s in self._prefill_queue):
             self._prefill_queue = collections.deque(
                 s for s in self._prefill_queue
@@ -258,18 +278,7 @@ class LLMEngine:
             if admitted is None:
                 break
             self._prefill_queue.append(admitted)
-        pref = self._next_prefill()
-        if pref is not None:
-            outputs.extend(self._run_prefill(pref))
-            if pref.ctx_len > 0 or pref.slot < 0 or pref.finished:
-                try:
-                    self._prefill_queue.remove(pref)
-                except ValueError:
-                    pass
-        if not skip_decode and any(
-                s is not None and s.ctx_len > 0 for s in self.slots):
-            outputs.extend(self._run_decode())
-        return outputs
+        return self._next_prefill()
 
     # consecutive work units a queued prefill may be passed over before
     # it runs regardless of length (anti-starvation aging for SRF)
@@ -428,41 +437,53 @@ class LLMEngine:
         L = len(seq)
         C = self.ecfg.prefill_chunk
         if C > 0:
-            return self._run_prefill_chunk(state, seq, L, C)
+            n = min(C, L - state.prefill_pos)
+            with tracing.span("engine.prefill", tokens=n, padded=C):
+                return self._run_prefill_chunk(state, seq, L, C)
         bucket = prefill_bucket(L, self.ecfg.max_seq_len)
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :L] = seq
-        seed, temp, top_k, top_p, greedy = self._sampling_arrays([state])
-        lora = None
-        if self.lora_pool is not None:
-            lora = self.lora_pool.select(
-                [self.lora_pool.slot_of(state.model_id)])
-        toks, _, _ = prefill_sample(
-            self.params, self.cache.k, self.cache.v, self._to_device(tokens),
-            self._to_device(np.asarray([L], np.int32)),
-            self._to_device(self.seq_table.block_tables[
-                state.slot:state.slot + 1]),
-            self.cos, self.sin, seed, temp, top_k, top_p, lora, cfg=self.cfg,
-            greedy=greedy)
-        self._counts["prefills"] += 1
-        state.ctx_len = L
-        tok = int(toks[0])
-        if not state.output:
-            state.first_token_t = time.perf_counter()
-        return [self._append_token(state, tok)]
+        with tracing.span("engine.prefill", tokens=L, padded=bucket):
+            with tracing.span("engine.prefill.prep"):
+                tokens = np.zeros((1, bucket), np.int32)
+                tokens[0, :L] = seq
+                seed, temp, top_k, top_p, greedy = self._sampling_arrays(
+                    [state])
+                lora = None
+                if self.lora_pool is not None:
+                    lora = self.lora_pool.select(
+                        [self.lora_pool.slot_of(state.model_id)])
+                tokens = self._to_device(tokens)
+                lens = self._to_device(np.asarray([L], np.int32))
+                bt = self._to_device(
+                    self.seq_table.block_tables[state.slot:state.slot + 1])
+            with tracing.span("runner.prefill"):
+                toks, _, _ = prefill_sample(
+                    self.params, self.cache.k, self.cache.v, tokens, lens,
+                    bt, self.cos, self.sin, seed, temp, top_k, top_p, lora,
+                    cfg=self.cfg, greedy=greedy)
+            self._counts["prefills"] += 1
+            state.ctx_len = L
+            with tracing.span("engine.prefill.sync"):
+                tok = int(toks[0])
+            if not state.output:
+                state.first_token_t = time.perf_counter()
+            return [self._append_token(state, tok)]
 
     def _run_prefill_chunk(self, state: RequestState, seq: List[int],
                            L: int, C: int) -> List[StepOutput]:
         start = state.prefill_pos
         n = min(C, L - start)
-        tokens = np.zeros((1, C), np.int32)
-        tokens[0, :n] = seq[start:start + n]
-        span = self._span_bucket(-(-(start + n) // self.ecfg.page_size))
-        bt = self._to_device(
-            self.seq_table.block_tables[state.slot:state.slot + 1, :span])
-        logits, _, _ = prefill_chunk(
-            self.params, self.cache.k, self.cache.v, self._to_device(tokens),
-            start, n, bt, self.cos, self.sin, cfg=self.cfg)
+        with tracing.span("engine.prefill.prep"):
+            tokens = np.zeros((1, C), np.int32)
+            tokens[0, :n] = seq[start:start + n]
+            pages = self._span_bucket(-(-(start + n) // self.ecfg.page_size))
+            bt = self._to_device(
+                self.seq_table.block_tables[state.slot:state.slot + 1,
+                                            :pages])
+            tokens = self._to_device(tokens)
+        with tracing.span("runner.prefill"):
+            logits, _, _ = prefill_chunk(
+                self.params, self.cache.k, self.cache.v, tokens,
+                start, n, bt, self.cos, self.sin, cfg=self.cfg)
         self._counts["prefill_chunks"] += 1
         state.prefill_pos = start + n
         if state.prefill_pos < L:
@@ -473,7 +494,8 @@ class LLMEngine:
                 state.prompt_page_keys,
                 [int(p) for p in table[:len(state.prompt_page_keys)]])
         seed, temp, top_k, top_p, _greedy = self._sampling_arrays([state])
-        tok = int(sample_logits(logits, seed, temp, top_k, top_p)[0])
+        with tracing.span("engine.prefill.sync"):
+            tok = int(sample_logits(logits, seed, temp, top_k, top_p)[0])
         state.ctx_len = L
         if not state.output:
             state.first_token_t = time.perf_counter()
@@ -540,53 +562,64 @@ class LLMEngine:
             outs = self._run_spec_decode()
             if outs is not None:
                 return outs
-        B = self.ecfg.max_num_seqs
         K = self._burst_width()
-        for s in [s for s in self.slots
-                  if s is not None and s.ctx_len > 0]:
-            if s.slot < 0:
-                continue  # preempted as a victim earlier this round
-            self._provision_pages(s, s.ctx_len + K)
-        active_states = [s for s in self.slots
-                         if s is not None and s.ctx_len > 0]
-        if not active_states:
-            return []
-        tokens = np.zeros(B, np.int32)
-        positions = np.zeros(B, np.int32)
-        active = np.zeros(B, bool)
-        for s in active_states:
-            tokens[s.slot] = s.output[-1] if s.output else s.prompt[-1]
-            positions[s.slot] = s.ctx_len
-            active[s.slot] = True
-        seed, temp, top_k, top_p, greedy = self._sampling_arrays(
-            self.slots, advance=K)
-        lora = None
-        if self.lora_pool is not None:
-            ids = [0] * B
+        with tracing.span("engine.decode", steps=K):
+            return self._decode_burst(K)
+
+    def _decode_burst(self, K: int) -> List[StepOutput]:
+        B = self.ecfg.max_num_seqs
+        with tracing.span("engine.decode.prep"):
+            for s in [s for s in self.slots
+                      if s is not None and s.ctx_len > 0]:
+                if s.slot < 0:
+                    continue  # preempted as a victim earlier this round
+                self._provision_pages(s, s.ctx_len + K)
+            active_states = [s for s in self.slots
+                             if s is not None and s.ctx_len > 0]
+            if not active_states:
+                return []
+            tokens = np.zeros(B, np.int32)
+            positions = np.zeros(B, np.int32)
+            active = np.zeros(B, bool)
             for s in active_states:
-                ids[s.slot] = self.lora_pool.slot_of(s.model_id)
-            lora = self.lora_pool.select(ids)
-        span = self._active_span()
-        use_paged = self._paged_kernel or (
-            self._paged_min_pages > 0 and span >= self._paged_min_pages)
-        toks, _, _ = decode_burst(
-            self.params, self.cache.k, self.cache.v,
-            self._to_device(tokens), self._to_device(positions),
-            self._bt(span), self._to_device(active), self.cos, self.sin,
-            seed, temp, top_k, top_p, lora, cfg=self.cfg, n_steps=K,
-            paged_kernel=use_paged, greedy=greedy)
+                tokens[s.slot] = s.output[-1] if s.output else s.prompt[-1]
+                positions[s.slot] = s.ctx_len
+                active[s.slot] = True
+            seed, temp, top_k, top_p, greedy = self._sampling_arrays(
+                self.slots, advance=K)
+            lora = None
+            if self.lora_pool is not None:
+                ids = [0] * B
+                for s in active_states:
+                    ids[s.slot] = self.lora_pool.slot_of(s.model_id)
+                lora = self.lora_pool.select(ids)
+            pages = self._active_span()
+            use_paged = self._paged_kernel or (
+                self._paged_min_pages > 0 and pages >= self._paged_min_pages)
+            tokens = self._to_device(tokens)
+            positions = self._to_device(positions)
+            bt = self._bt(pages)
+            active = self._to_device(active)
+        with tracing.span("runner.decode_burst"):
+            toks, _, _ = decode_burst(
+                self.params, self.cache.k, self.cache.v, tokens, positions,
+                bt, active, self.cos, self.sin, seed, temp, top_k, top_p,
+                lora, cfg=self.cfg, n_steps=K, paged_kernel=use_paged,
+                greedy=greedy)
         self._counts["decode_bursts"] += 1
         self._counts["decode_steps"] += K
         if use_paged:
             self._counts["paged_decode_steps"] += K
-        sampled = toks.cpu().numpy()  # [K, B]: the burst's one host sync
-        outs = []
-        for s in active_states:
-            for k in range(K):
-                s.ctx_len += 1
-                outs.append(self._append_token(s, int(sampled[k, s.slot])))
-                if s.finished:
-                    break
+        with tracing.span("engine.decode.sync"):
+            sampled = toks.cpu().numpy()  # [K, B]: the burst's one host sync
+        with tracing.span("engine.decode.emit"):
+            outs = []
+            for s in active_states:
+                for k in range(K):
+                    s.ctx_len += 1
+                    outs.append(self._append_token(s, int(sampled[k, s.slot])))
+                    if s.finished:
+                        break
         return outs
 
     # --- speculative decoding (spec_decode.py) ---

@@ -46,6 +46,7 @@ from ..ops.moe import moe_mlp_dense
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import (embed_lookup, is_quantized, logits_matmul,
                          weight_einsum)
+from ..util.tracing import span
 from .lora import lora_delta
 from .sampling import sample_from_logits
 
@@ -53,12 +54,13 @@ from .sampling import sample_from_logits
 def _mlp(h, lp, cfg: LlamaConfig):
     """Dense SwiGLU, or the exact top-k expert mixture for MoE (every
     expert on every token in f32, E times the dense MLP's work)."""
-    if cfg.n_experts:
-        return moe_mlp_dense(h, lp["router"], lp["w_gate"], lp["w_up"],
-                             lp["w_down"], top_k=cfg.top_k)
-    g = weight_einsum("bsd,dm->bsm", h, lp["w_gate"])
-    u = weight_einsum("bsd,dm->bsm", h, lp["w_up"])
-    return weight_einsum("bsm,md->bsd", F.silu(g) * u, lp["w_down"])
+    with span("op.mlp", device=True):
+        if cfg.n_experts:
+            return moe_mlp_dense(h, lp["router"], lp["w_gate"], lp["w_up"],
+                                 lp["w_down"], top_k=cfg.top_k)
+        g = weight_einsum("bsd,dm->bsm", h, lp["w_gate"])
+        u = weight_einsum("bsd,dm->bsm", h, lp["w_up"])
+        return weight_einsum("bsm,md->bsd", F.silu(g) * u, lp["w_down"])
 
 
 def _lm_logits(x_last, params, cfg: LlamaConfig):

@@ -41,6 +41,7 @@ from .._private.device import resolve_device
 from ..models.convert import params_from_jax
 from ..models.llama import LLAMA_CONFIGS, init_params
 from ..util import metrics as _local_metrics
+from ..util import tracing
 from .cache import make_summary
 from .engine import EngineConfig, LLMEngine
 from .sampling import SamplingParams
@@ -377,17 +378,28 @@ class LLMServer:
             self._pump_task = asyncio.get_running_loop().create_task(
                 self._pump())
 
-    def _step_engine(self):
+    def _step_engine(self, submitted: Optional[float] = None):
+        """One engine step on the executor thread, and the clock when it
+        returned (while the tracer is on). ``serve.pump.hop`` runs from
+        the pump's submit (``submitted``) to the step's start, the wait
+        for the engine lock included."""
         # prefill replicas never decode: exported requests finish with
         # the handoff
         with self._locked():
-            return self.engine.step(
-                skip_decode=(self._pool == "prefill"))
+            tracing.record("serve.pump.hop", submitted)
+            outs = self.engine.step(skip_decode=(self._pool == "prefill"))
+            return outs, tracing.stamp()
 
     async def _pump(self) -> None:
         loop = asyncio.get_running_loop()
+        returned = None
         while self.engine.has_unfinished():
-            outs = await loop.run_in_executor(None, self._step_engine)
+            # serve.pump.fanout: from the last step's return to this
+            # submit (the wake-up, the queues, the finished requests'
+            # histograms, the gauges)
+            tracing.record("serve.pump.fanout", returned)
+            outs, returned = await loop.run_in_executor(
+                None, self._step_engine, tracing.stamp())
             for out in outs:
                 q = self._queues.get(out.request_id)
                 if q is not None:

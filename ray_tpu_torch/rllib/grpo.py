@@ -33,12 +33,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .._private.device import DeviceLike, resolve_device
 from .._private.tree import tree_leaves, tree_map, unstack_layers
 from ..models.llama import LLAMA_CONFIGS, LlamaConfig, forward, init_params
 from ..train.optim import adamw
+from ..util.tracing import span
 
 __all__ = ["GRPO", "GRPOConfig"]
 
@@ -178,7 +178,7 @@ class GRPO:
         cfg, ccfg = self.cfg, self.config
         t0 = time.perf_counter()
         all_tokens, all_masks, all_advs, all_rewards = [], [], [], []
-        with record_function("grpo.sample"):
+        with span("grpo.sample"):
             for prompt in prompts:
                 prompt = list(prompt)[: ccfg.max_prompt_len]
                 tokens, mask = _sample_group(
@@ -208,7 +208,7 @@ class GRPO:
             "mask": torch.from_numpy(np.concatenate(all_masks)),
             "advantages": torch.from_numpy(np.concatenate(all_advs)),
         }
-        with record_function("grpo.update"):
+        with span("grpo.update"):
             batch = {k: v.to(self.device) for k, v in batch.items()}
             self.params, self.opt_state, losses = _grpo_update(
                 self.params, self.ref_params, self.opt_state, batch,

@@ -33,8 +33,6 @@ import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
-
 from torch.distributed.tensor import DTensor
 
 from .._private.device import DeviceLike, resolve_device
@@ -42,6 +40,7 @@ from .._private.tree import tree_leaves, tree_map, unstack_layers
 from ..ops._kernels import BUILD_DIR
 from ..parallel.sharding import (DEFAULT_RULES, distribute_batch,
                                  distribute_pytree)
+from ..util.tracing import span
 from .telemetry import StepInstrumenter
 
 # the port's convention: a rank drives one card (or, on the CPU, one
@@ -163,7 +162,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
 
     def step_fn(state: TrainState, batch):
         leaves = tree_leaves(state.params)
-        with record_function("train.forward_backward"):
+        with span("train.forward_backward"):
             loss = loss_fn(state.params, batch)
             loss.backward()
         # a leaf the loss does not reach has a zero gradient, as in JAX;
@@ -174,7 +173,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
             grads = [g if g.placements == p.placements else
                      g.redistribute(p.device_mesh, p.placements)
                      for p, g in zip(leaves, grads)]
-        with torch.no_grad(), record_function("train.grad_norm"):
+        with torch.no_grad(), span("train.grad_norm"):
             # an f32 sum of squares over all leaves, whatever their dtype;
             # ray_tpu reports optax.global_norm, which sums in the leaf
             # dtype (bf16 at 8B). Equal in f32; no update reads the norm
@@ -182,7 +181,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer,
                 torch.linalg.vector_norm(g, dtype=torch.float32).square()
                 for g in grads]).sum().sqrt()
             grad_norm = _full(grad_norm)
-        with record_function("train.optimizer"):
+        with span("train.optimizer"):
             optimizer.update_(state.params, grads, state.opt_state)
         for p in leaves:
             p.grad = None

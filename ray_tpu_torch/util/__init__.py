@@ -1,5 +1,6 @@
 """Device utilities of the port: per-card memory stats (``hbm``), the
-profiler (``tracing``) and process-local metrics (``metrics``)."""
+profiler and the port's one span API (``tracing``) and process-local
+metrics (``metrics``)."""
 
 from .hbm import collect_hbm_stats, publish_hbm_gauges
 from .tracing import profile, span

@@ -1391,3 +1391,47 @@ def test_binding_at_world_one_leaves_the_current_card(gen):
             assert torch.cuda.current_device() == last
         assert not dist.is_initialized()
         assert resolve_device(None) == torch.device("cuda", last)
+
+
+def test_device_spans_lie_on_the_host_clock(gen):
+    """A device span's interval, placed on the host clock by the anchor,
+    starts no earlier than its host span opened and, for a span whose
+    work is synced inside it, ends no later than the host span closed;
+    a spin of known length reads its length."""
+    import time
+
+    from ray_tpu_torch.util import tracing
+
+    x = _randn(gen, (2048, 2048))
+    tracing.enable(device=True)
+    try:
+        for _ in range(5):
+            with tracing.span("op.mlp", device=True):
+                for _ in range(4):
+                    x = torch.tanh(x @ x)
+                torch.cuda.synchronize()
+            time.sleep(0.002)
+        with tracing.span("spin", device=True):
+            torch.cuda._sleep(10_000_000)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    got = tracing.drain()
+    host = {s.id: s for s in got["host"]}
+    assert [s.name for s in got["device"]] == ["op.mlp"] * 5 + ["spin"]
+    slack = 200e-6
+    for d in got["device"]:
+        h = host[d.id]
+        assert d.t0 < d.t1
+        assert d.t0 >= h.t0 - slack, (d, h)
+        if d.name == "op.mlp":
+            assert d.t1 <= h.t1 + slack, (d, h)
+    spin = got["device"][-1]
+    # the spin's cycles over the card's clock, read back by events
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    assert spin.t1 - spin.t0 == pytest.approx(
+        start.elapsed_time(end) / 1e3, rel=0.1)
