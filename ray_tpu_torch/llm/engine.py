@@ -9,7 +9,10 @@ preemption. All paging is host-side; the device only sees block tables.
 Host/device traffic per round: the round's small inputs are uploaded,
 one decode burst of K steps runs on the device, and the [K, B] tokens
 come back in one copy. The device copy of the block table is refreshed
-only when the table changed or the span differs.
+only when the table changed or the span differs. On a CUDA card a greedy
+burst on the paged kernel with no LoRA replays one captured decode step
+(``runner.DecodeGraph``) K times instead of launching every op of every
+layer from the host.
 
 It serves the reference's whole single-device surface: multi-LoRA
 (``lora_rank``, ``model_id``, ``add_lora``/``remove_lora``; llm/lora.py),
@@ -40,8 +43,9 @@ from ..ops import rope_frequencies
 from ..util import tracing
 from .cache import PageAllocator, PrefixCache, SequenceTable, init_kv_cache
 from .lora import LoRAPool, init_lora_adapter
-from .runner import (decode_burst, prefill_bucket, prefill_chunk,
-                     prefill_sample, sample_logits, verify_step)
+from .runner import (DecodeGraph, decode_burst, prefill_bucket,
+                     prefill_chunk, prefill_sample, sample_logits,
+                     verify_step)
 from .sampling import SamplingParams
 from .spec_decode import SpecDecoder, accept_prefix
 
@@ -182,9 +186,11 @@ class LLMEngine:
         self._id = itertools.count()
         self._bt_device = None
         self._bt_version = None
+        self._graph: Optional[DecodeGraph] = None
         self._counts = {"prefills": 0, "prefill_chunks": 0,
                         "decode_bursts": 0, "decode_steps": 0,
-                        "paged_decode_steps": 0, "preemptions": 0,
+                        "paged_decode_steps": 0, "decode_graph_steps": 0,
+                        "preemptions": 0,
                         "verify_steps": 0, "draft_prefills": 0,
                         "injected": 0}
 
@@ -596,20 +602,36 @@ class LLMEngine:
             pages = self._active_span()
             use_paged = self._paged_kernel or (
                 self._paged_min_pages > 0 and pages >= self._paged_min_pages)
+            graphed = self._graph_eligible(greedy, use_paged)
             tokens = self._to_device(tokens)
             positions = self._to_device(positions)
-            bt = self._bt(pages)
+            # the paged kernel reads the table at full width (its columns
+            # past a row's pages point at dump page 0), so that a burst
+            # gives the same numbers with the graph and without it
+            bt = self._bt(None if use_paged else pages)
             active = self._to_device(active)
+        tracing.annotate(graphed=int(graphed))
         with tracing.span("runner.decode_burst"):
-            toks, _, _ = decode_burst(
-                self.params, self.cache.k, self.cache.v, tokens, positions,
-                bt, active, self.cos, self.sin, seed, temp, top_k, top_p,
-                lora, cfg=self.cfg, n_steps=K, paged_kernel=use_paged,
-                greedy=greedy)
+            if graphed:
+                if self._graph is None:
+                    self._graph = DecodeGraph(
+                        self.cfg, B, self.ecfg.decode_burst, bt.shape[1],
+                        self.cache.k.dtype, self.device)
+                toks = self._graph.run(
+                    self.params, self.cache.k, self.cache.v, tokens,
+                    positions, bt, active, self.cos, self.sin, K)
+            else:
+                toks, _, _ = decode_burst(
+                    self.params, self.cache.k, self.cache.v, tokens,
+                    positions, bt, active, self.cos, self.sin, seed, temp,
+                    top_k, top_p, lora, cfg=self.cfg, n_steps=K,
+                    paged_kernel=use_paged, greedy=greedy)
         self._counts["decode_bursts"] += 1
         self._counts["decode_steps"] += K
         if use_paged:
             self._counts["paged_decode_steps"] += K
+        if graphed:
+            self._counts["decode_graph_steps"] += K
         with tracing.span("engine.decode.sync"):
             sampled = toks.cpu().numpy()  # [K, B]: the burst's one host sync
         with tracing.span("engine.decode.emit"):
@@ -621,6 +643,15 @@ class LLMEngine:
                     if s.finished:
                         break
         return outs
+
+    def _graph_eligible(self, greedy: bool, use_paged: bool) -> bool:
+        """Whether a burst replays the captured decode step
+        (``runner.DecodeGraph``), read from the round itself: on a CUDA
+        card, every row greedy (the sampler seeds a host generator each
+        step, which a graph cannot replay), no LoRA pool, and the paged
+        kernel. Every other burst runs ``decode_burst`` eagerly."""
+        return (self.device.type == "cuda" and greedy
+                and self.lora_pool is None and use_paged)
 
     # --- speculative decoding (spec_decode.py) ---
 
@@ -999,7 +1030,9 @@ class LLMEngine:
         work units run so far (each whole-prompt prefill runs the flash
         kernel once per layer; each paged decode step runs the paged
         kernel once per layer; so does each drafter warm-up prefill,
-        once per drafter layer), and the drafter's counters under
+        once per drafter layer), the decode steps replayed from the
+        captured step (``decode_graph_steps``) and the captures made
+        (``decode_graph_captures``), and the drafter's counters under
         "spec"."""
         out = {
             "running": sum(s is not None for s in self.slots),
@@ -1007,6 +1040,8 @@ class LLMEngine:
             "free_pages": self.allocator.free_pages,
             "total_pages": self.allocator.num_pages - 1,
             **self._counts,
+            "decode_graph_captures": (self._graph.captures
+                                      if self._graph is not None else 0),
         }
         if self.spec is not None:
             out["spec"] = self.spec.stats()

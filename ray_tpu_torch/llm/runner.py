@@ -1,5 +1,6 @@
 """Model runner: prefill, chunked prefill, the fused K-step decode burst
-and the speculative verify window over the paged KV cache, for the Llama
+(eager, or a greedy step captured as a CUDA graph, ``DecodeGraph``) and
+the speculative verify window over the paged KV cache, for the Llama
 family, with per-slot LoRA adapters on prefill and decode.
 
 Counterpart of ``ray_tpu/llm/runner.py``. Where the JAX functions donated
@@ -39,14 +40,14 @@ import torch
 import torch.nn.functional as F
 
 from .._private.config import global_config
-from .._private.tree import layer_params
+from .._private.tree import layer_params, tree_leaves
 from ..models.llama import LlamaConfig
-from ..ops import apply_rotary, attention, rms_norm
+from ..ops import _kernels, apply_rotary, attention, rms_norm
 from ..ops.moe import moe_mlp_dense
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import (embed_lookup, is_quantized, logits_matmul,
                          weight_einsum)
-from ..util.tracing import span
+from ..util.tracing import device_spans_off, span
 from .lora import lora_delta
 from .sampling import sample_from_logits
 
@@ -314,6 +315,76 @@ def _attend_gathered(qg, ok, ov, nk, nv, old_mask, new_mask, hd):
             + torch.einsum("bgrk,bkgd->bgrd", p[..., Sold:], nv.float()))
 
 
+def _decode_step(params, cache_k, cache_v, toks, positions, block_tables,
+                 active, cos, sin, step, scratch_k, scratch_v, out,
+                 lora=None, gathered=None, seed=0, temperature=None,
+                 top_k=None, top_p=None, *, cfg: LlamaConfig,
+                 greedy: bool = False):
+    """One step of a decode burst, at the step index ``step`` ([1] int32,
+    on the device): the rows' tokens ``toks`` [B] int64 at positions
+    ``positions + step``, attending over the cached context and columns
+    0..step of the burst scratch [L, B, width, kvh, hd]. It writes the
+    step's K and V into scratch column ``step``, feeds the new tokens
+    back into ``toks`` (inactive rows keep theirs), writes them into row
+    ``step`` of ``out`` [width, B] and increments ``step``, all in place
+    and with no host read, so that a CUDA graph can capture it.
+    ``gathered`` is (old_k, old_v, old_mask) of the gather path, None for
+    the paged kernel; ``seed`` is this step's sampling seed."""
+    B = toks.shape[0]
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // kvh
+    idx = step.long()
+    pos_i = (positions + step)[:, None]
+    new_len = (step + 1).expand(B).contiguous()
+    x = embed_lookup(params["embed"], toks, cfg.dtype)[:, None, :]
+    for li in range(cfg.n_layers):
+        lp = layer_params(params["layers"], li)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(h, lp, cfg, lora, li)
+        q = apply_rotary(q, cos, sin, positions=pos_i)[:, 0]
+        k = apply_rotary(k, cos, sin, positions=pos_i)
+        scratch_k[li].index_copy_(1, idx, k.to(scratch_k.dtype))
+        scratch_v[li].index_copy_(1, idx, v.to(scratch_v.dtype))
+        qg = q.reshape(B, kvh, rep, hd)
+        if gathered is None:
+            o = paged_decode_attention(
+                qg, cache_k[li], cache_v[li], scratch_k[li], scratch_v[li],
+                block_tables, positions, new_len).float()
+        else:
+            old_k, old_v, old_mask = gathered
+            new_mask = torch.arange(scratch_k.shape[2],
+                                    device=idx.device)[None, :] <= step
+            o = _attend_gathered(qg, old_k[li], old_v[li], scratch_k[li],
+                                 scratch_v[li], old_mask, new_mask, hd)
+        o = o.reshape(B, 1, cfg.n_heads, hd).to(x.dtype)
+        x = _finish_layer(x, o, lp, cfg)
+    h = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    logits = _lm_logits(h, params, cfg)
+    if greedy:
+        newt = logits.argmax(dim=-1)
+    else:
+        newt = sample_from_logits(logits, seed, temperature, top_k, top_p)
+    toks.copy_(torch.where(active, newt, toks))
+    out.index_copy_(0, idx, toks[None])
+    step.add_(1)
+
+
+def _scatter_burst(cache_k, cache_v, scratch_k, scratch_v, positions,
+                   active, block_tables, n_steps: int):
+    """One scatter of a burst's first ``n_steps`` scratch columns into the
+    pages, in place; inactive slots land on dump page 0."""
+    L, B = scratch_k.shape[:2]
+    kvh, hd = scratch_k.shape[3:]
+    ar_k = torch.arange(n_steps, device=positions.device)
+    p_grid = positions.long()[:, None] + ar_k[None, :]          # [B, K]
+    write_pos = torch.where(active[:, None], p_grid, -1)
+    fp, fo = _page_slots(block_tables, write_pos, cache_k.shape[2])
+    cache_k[:, fp, fo] = scratch_k[:, :, :n_steps].reshape(
+        L, B * n_steps, kvh, hd)
+    cache_v[:, fp, fo] = scratch_v[:, :, :n_steps].reshape(
+        L, B * n_steps, kvh, hd)
+
+
 @torch.inference_mode()
 def decode_burst(params, cache_k, cache_v, tokens, positions,
                  block_tables, active, cos, sin, seed, temperature,
@@ -343,64 +414,141 @@ def decode_burst(params, cache_k, cache_v, tokens, positions,
     B = tokens.shape[0]
     K, L = n_steps, cfg.n_layers
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    rep = cfg.n_heads // kvh
     dev = tokens.device
     n_pool, page_size = cache_k.shape[1], cache_k.shape[2]
     Sold = block_tables.shape[1] * page_size
     positions = positions.to(torch.int32).contiguous()
     block_tables = block_tables.to(torch.int32).contiguous()
+    gathered = None
     if not use_paged:
         bt = block_tables.long().clamp(0, n_pool - 1)
-        old_k = cache_k[:, bt].reshape(L, B, Sold, kvh, hd)
-        old_v = cache_v[:, bt].reshape(L, B, Sold, kvh, hd)
+        gathered = (cache_k[:, bt].reshape(L, B, Sold, kvh, hd),
+                    cache_v[:, bt].reshape(L, B, Sold, kvh, hd),
+                    torch.arange(Sold, device=dev)[None, :]
+                    < positions[:, None])                       # [B, Sold]
     scratch_k = torch.zeros((L, B, K, kvh, hd), dtype=cache_k.dtype,
                             device=dev)
     scratch_v = torch.zeros_like(scratch_k)
-    old_mask = (torch.arange(Sold, device=dev)[None, :]
-                < positions[:, None])                           # [B, Sold]
-    ar_k = torch.arange(K, device=dev)
     out = torch.empty((K, B), dtype=torch.int64, device=dev)
-    toks = tokens.long()
+    toks = tokens.to(torch.int64, copy=True)
+    step = torch.zeros(1, dtype=torch.int32, device=dev)
     for i in range(K):
-        pos_i = (positions + i)[:, None]
-        x = embed_lookup(params["embed"], toks, cfg.dtype)[:, None, :]
-        new_mask = ar_k[None, :] <= i                           # [1, K]
-        new_len = torch.full((B,), i + 1, dtype=torch.int32, device=dev)
-        for li in range(L):
-            lp = layer_params(params["layers"], li)
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k, v = _qkv(h, lp, cfg, lora, li)
-            q = apply_rotary(q, cos, sin, positions=pos_i)[:, 0]
-            k = apply_rotary(k, cos, sin, positions=pos_i)[:, 0]
-            scratch_k[li, :, i] = k.to(scratch_k.dtype)
-            scratch_v[li, :, i] = v[:, 0].to(scratch_v.dtype)
-            qg = q.reshape(B, kvh, rep, hd)
-            if use_paged:
-                o = paged_decode_attention(
-                    qg, cache_k[li], cache_v[li], scratch_k[li],
-                    scratch_v[li], block_tables, positions,
-                    new_len).float()
-            else:
-                o = _attend_gathered(qg, old_k[li], old_v[li],
-                                     scratch_k[li], scratch_v[li],
-                                     old_mask, new_mask, hd)
-            o = o.reshape(B, 1, cfg.n_heads, hd).to(x.dtype)
-            x = _finish_layer(x, o, lp, cfg)
-        h = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-        logits = _lm_logits(h, params, cfg)
-        if greedy:
-            newt = logits.argmax(dim=-1)
-        else:
-            newt = sample_from_logits(logits, seed + i, temperature, top_k,
-                                      top_p)
-        toks = torch.where(active, newt, toks)
-        out[i] = toks
-
-    # one scatter of the whole burst into the pages, in place; inactive
-    # slots land on dump page 0
-    p_grid = positions.long()[:, None] + ar_k[None, :]          # [B, K]
-    write_pos = torch.where(active[:, None], p_grid, -1)
-    fp, fo = _page_slots(block_tables, write_pos, page_size)
-    cache_k[:, fp, fo] = scratch_k.reshape(L, B * K, kvh, hd)
-    cache_v[:, fp, fo] = scratch_v.reshape(L, B * K, kvh, hd)
+        _decode_step(params, cache_k, cache_v, toks, positions,
+                     block_tables, active, cos, sin, step, scratch_k,
+                     scratch_v, out, lora, gathered, seed + i, temperature,
+                     top_k, top_p, cfg=cfg, greedy=greedy)
+    _scatter_burst(cache_k, cache_v, scratch_k, scratch_v, positions, active,
+                   block_tables, K)
     return out, cache_k, cache_v
+
+
+class DecodeGraph:
+    """A greedy decode step of the whole model on the paged kernel, over
+    static buffers, captured once as a CUDA graph that a burst replays
+    once a step: the host launches one graph a step instead of every op
+    of every layer.
+
+    The buffers are sized once: ``batch`` rows, a scratch of ``width``
+    (the engine's ``decode_burst``) columns and the block table at its
+    full ``n_pages`` columns (the columns past a row's pages point at
+    dump page 0; the paged kernel's grid comes from the shapes alone).
+    ``run`` loads a burst's tokens, positions, ``active`` rows and table
+    into them, zeroes the step index, replays the graph ``n_steps`` times
+    with no host work between replays, then scatters the scratch into the
+    pages as ``decode_burst`` does. On the card its tokens equal
+    ``decode_burst``'s with the same table, and so do the pages, bit for
+    bit: the kernel reads only the scratch's steps so far.
+
+    The graph holds the addresses of the parameters, the KV cache and the
+    rotary tables; it is captured lazily, at the first ``run``, and again
+    whenever one of those tensors is another than at the capture. It is
+    captured under ``torch.inference_mode()``, after one warm-up step on
+    the capture's side stream, on inputs where no row is active, with
+    ``capture_error_mode="thread_local"`` (a server steps its engine on a
+    worker thread), and with the tracer's device spans suspended, so that
+    no span's CUDA events are baked into the graph. Its warm-up step and
+    its capture decode nothing and are left out of the paged kernel's
+    launch count; every replay adds ``n_layers`` to it.
+
+    On a device other than CUDA there is nothing to capture: ``run``
+    executes the same step, eagerly, ``n_steps`` times.
+    """
+
+    @torch.inference_mode()
+    def __init__(self, cfg: LlamaConfig, batch: int, width: int,
+                 n_pages: int, kv_dtype, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        shape = (cfg.n_layers, batch, width, cfg.n_kv_heads, cfg.head_dim)
+        self.tokens = torch.zeros(batch, dtype=torch.int64, device=device)
+        self.positions = torch.zeros(batch, dtype=torch.int32,
+                                     device=device)
+        self.active = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.block_tables = torch.zeros((batch, n_pages), dtype=torch.int32,
+                                        device=device)
+        self.step = torch.zeros(1, dtype=torch.int32, device=device)
+        self.scratch_k = torch.zeros(shape, dtype=kv_dtype, device=device)
+        self.scratch_v = torch.zeros_like(self.scratch_k)
+        self.out = torch.zeros((width, batch), dtype=torch.int64,
+                               device=device)
+        self.graph = None
+        self.captured_on = None
+        self.captures = 0
+
+    def _step(self, params, cache_k, cache_v, cos, sin):
+        _decode_step(params, cache_k, cache_v, self.tokens, self.positions,
+                     self.block_tables, self.active, cos, sin, self.step,
+                     self.scratch_k, self.scratch_v, self.out,
+                     cfg=self.cfg, greedy=True)
+
+    def _capture(self, params, cache_k, cache_v, cos, sin, key):
+        self.graph = None       # the old graph's pool goes first
+        for t in (self.tokens, self.positions, self.active,
+                  self.block_tables, self.step):
+            t.zero_()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        with device_spans_off():
+            with torch.cuda.stream(side):
+                self._step(params, cache_k, cache_v, cos, sin)
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self._step(params, cache_k, cache_v, cos, sin)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        with _kernels.COUNT_LOCK:
+            paged_decode_attention.launches -= 2 * self.cfg.n_layers
+        self.graph, self.captured_on = graph, key
+        self.captures += 1
+
+    @torch.inference_mode()
+    def run(self, params, cache_k, cache_v, tokens, positions, block_tables,
+            active, cos, sin, n_steps: int):
+        """A greedy burst of ``n_steps`` (at most ``width``) over the
+        paged cache, as ``decode_burst``; ``block_tables`` has the full
+        ``n_pages`` columns. Returns the [n_steps, B] tokens, a view of
+        the buffer that the next ``run`` overwrites."""
+        if self.device.type == "cuda":
+            key = tuple((t.data_ptr(), tuple(t.shape))
+                        for t in (*tree_leaves(params), cache_k, cache_v,
+                                  cos, sin))
+            if key != self.captured_on:
+                self._capture(params, cache_k, cache_v, cos, sin, key)
+        self.tokens.copy_(tokens)
+        self.positions.copy_(positions)
+        self.active.copy_(active)
+        self.block_tables.copy_(block_tables)
+        self.step.zero_()
+        if self.graph is not None:
+            for _ in range(n_steps):
+                self.graph.replay()
+            with _kernels.COUNT_LOCK:
+                paged_decode_attention.launches += (n_steps
+                                                    * self.cfg.n_layers)
+        else:
+            for _ in range(n_steps):
+                self._step(params, cache_k, cache_v, cos, sin)
+        _scatter_burst(cache_k, cache_v, self.scratch_k, self.scratch_v,
+                       self.positions, self.active, self.block_tables,
+                       n_steps)
+        return self.out[:n_steps]

@@ -186,6 +186,31 @@ def enable(device: bool = False) -> None:
     tr.on = True
 
 
+@contextmanager
+def device_spans_off():
+    """Suspend device spans in the block, on every thread, and restore the
+    tracer's state after it: host spans are still recorded. A CUDA graph
+    capture runs in this block, so that no span's events are baked into
+    the graph."""
+    tr = _TRACER
+    saved = tr.device
+    tr.device = False
+    try:
+        yield
+    finally:
+        tr.device = saved
+
+
+def annotate(**attrs) -> None:
+    """Add ``attrs`` to the innermost span open on this thread, while the
+    tracer is on (for what is known only inside the span)."""
+    tr = _TRACER
+    if tr.on:
+        stack = tr.stack()
+        if stack:
+            stack[-1].attrs.update(attrs)
+
+
 def disable() -> None:
     """Turn the tracer off; what it recorded stays until ``drain``."""
     _TRACER.on = False

@@ -234,6 +234,88 @@ def test_engine_on_card_matches_cpu(gen):
         assert (flash_attention.launches > f0) == (chunk == 0)
 
 
+_GRAPH_CFG = LlamaConfig(vocab=512, dim=256, n_layers=3, n_heads=4,
+                         n_kv_heads=1, mlp_dim=512, max_seq=256,
+                         dtype=torch.bfloat16, remat=False)
+# 8 usable pages of 16: three sequences of up to 110 tokens take turns
+_GRAPH_ECFG = dict(max_num_seqs=3, page_size=16, num_pages=9,
+                   max_seq_len=128, decode_burst=4)
+
+
+def _graph_run(params, stop=(), graphed=True, swap_params_at=None):
+    """Serve three prompts on the card, greedy, with the decode graph or
+    with every burst eager; returns the streams, the engine and the
+    allocated bytes after each step that followed the first capture."""
+    eng = LLMEngine(params, _GRAPH_CFG, EngineConfig(**_GRAPH_ECFG),
+                    device="cuda")
+    if not graphed:
+        eng._graph_eligible = lambda greedy, paged: False
+    g = torch.Generator().manual_seed(4)
+    # the stop token ends the first request only; the other two grow
+    # past the pool together (13 pages of 8)
+    sps = [SamplingParams(temperature=0.0, max_tokens=60,
+                          stop_token_ids=stop if i == 0 else ())
+           for i in range(3)]
+    ids = [eng.add_request(torch.randint(0, _GRAPH_CFG.vocab, (n,),
+                                         generator=g).tolist(), sp)
+           for n, sp in zip((41, 50, 33), sps)]
+    allocated, steps = [], 0
+    while eng.has_unfinished():
+        eng.step()
+        steps += 1
+        if steps == swap_params_at:
+            eng.params = tree_map(lambda t: t.clone(), eng.params)
+        torch.cuda.synchronize()
+        if eng.stats()["decode_graph_captures"] == 1:
+            allocated.append(torch.cuda.memory_allocated())
+    return [eng.requests[i].output for i in ids], eng, allocated
+
+
+def test_decode_graph_matches_eager_bursts_on_card(gen):
+    """bf16 on the card: the engine's captured decode step against its
+    eager bursts (decode_burst, the same full-width table): equal greedy
+    streams and bit-equal KV pages (the dump page aside) through
+    preemptions and a stop token inside a burst; every decode step
+    replayed, the paged kernel's count n_layers a replayed step, and the
+    allocated bytes flat across replays."""
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    params = init_params(_GRAPH_CFG, seed=3, device="cuda")
+    first, _, _ = _graph_run(params, graphed=False)
+    stop = (first[0][9],)
+    want, eager, _ = _graph_run(params, stop, graphed=False)
+    p0 = paged_decode_attention.launches
+    got, eng, allocated = _graph_run(params, stop)
+    launched = paged_decode_attention.launches - p0
+    assert got == want
+    assert len(got[0]) < 60
+    st = eng.stats()
+    assert st["preemptions"] > 0 and st["decode_graph_captures"] == 1
+    assert st["decode_graph_steps"] == st["paged_decode_steps"] \
+        == st["decode_steps"] > 0
+    assert eager.stats()["decode_graph_steps"] == 0
+    assert launched == _GRAPH_CFG.n_layers * st["paged_decode_steps"]
+    # page 0 is the dump page, where inactive rows' writes land in any
+    # order
+    for got_c, want_c in ((eng.cache.k, eager.cache.k),
+                          (eng.cache.v, eager.cache.v)):
+        differ = (got_c[:, 1:] != want_c[:, 1:]).flatten(2).any(-1)
+        assert not differ.any(), differ.nonzero().tolist()
+    assert len(allocated) > 5 and len(set(allocated)) == 1, allocated
+
+
+def test_decode_graph_is_rebuilt_for_new_params(gen):
+    """Reassigning engine.params (a copy, at other addresses) captures the
+    step again at the next burst; the streams stay the eager ones."""
+    params = init_params(_GRAPH_CFG, seed=5, device="cuda")
+    want, _, _ = _graph_run(params, graphed=False)
+    got, eng, _ = _graph_run(params, swap_params_at=6)
+    assert got == want
+    st = eng.stats()
+    assert st["decode_graph_captures"] == 2
+    assert st["decode_graph_steps"] == st["decode_steps"]
+
+
 _SERVE_CFG = LlamaConfig(vocab=512, dim=256, n_layers=2, n_heads=2,
                          n_kv_heads=1, mlp_dim=512, max_seq=256,
                          dtype=torch.float32, remat=False)

@@ -7,6 +7,8 @@ identical. Sampling is compared by distribution: the two frameworks'
 generators cannot give the same draws.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -197,6 +199,131 @@ def test_decode_paths_agree_on_sampled_burst(weights):
         *samp, cfg=CFG, n_steps=K, paged_kernel=paged)[0]
         for paged in (True, False)]
     assert torch.equal(outs[0], outs[1])
+
+
+# --- the captured decode step (runner.DecodeGraph) ---------------------------
+
+MOE_CFG = dataclasses.replace(CFG, n_experts=4, top_k=2)
+
+
+@pytest.fixture(scope="module")
+def step_params():
+    """Tiny dense and tiny MoE params, seeded."""
+    from ray_tpu_torch.models.llama import init_params
+
+    return {False: init_params(CFG, seed=5, device="cpu"),
+            True: init_params(MOE_CFG, seed=6, device="cpu")}
+
+
+@pytest.mark.parametrize("moe", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_decode_graph_step_equals_decode_burst(step_params, K, moe):
+    """The graph's step run without capture on the CPU: static buffers, a
+    device step index, K steps over a scratch of width 8 (the burst
+    width) and of width K; tokens equal decode_burst's, with an inactive
+    row, over two bursts on one set of buffers. The pages after the
+    scatter are bit-equal at width K. At width 8 they agree to rounding:
+    the plain version on the CPU reduces over the scratch's whole width,
+    and a wider scratch orders its sums otherwise (the card's kernel
+    reads only the steps so far, and the card test holds the bits)."""
+    cfg = MOE_CFG if moe else CFG
+    params = step_params[moe]
+    cos, sin = _tables()[0]
+    bt = torch.tensor([[4, 6, 0, 0, 0, 0], [10, 12, 14, 16, 0, 0],
+                       [0, 0, 0, 0, 0, 0], [3, 5, 7, 0, 0, 0]],
+                      dtype=torch.int32)
+    active = torch.tensor([True, True, False, True])
+    samp = (torch.zeros(4), torch.zeros(4, dtype=torch.int32),
+            torch.ones(4))
+    for width in sorted({K, 8}):
+        rng = np.random.default_rng(K)
+        ck, cv = (torch.from_numpy(a) for a in _caches(7 + K))
+        ck2, cv2 = ck.clone(), cv.clone()
+        graph = runner.DecodeGraph(cfg, 4, width, bt.shape[1], ck.dtype,
+                                   "cpu")
+        for burst in range(2):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, 4)).to(
+                torch.int32)
+            pos = torch.tensor([1, 5, 0, 2], dtype=torch.int32) + 8 * burst
+            want, _, _ = runner.decode_burst(
+                params, ck, cv, toks, pos, bt, active, cos, sin, 0, *samp,
+                cfg=cfg, n_steps=K, paged_kernel=True, greedy=True)
+            got = graph.run(params, ck2, cv2, toks, pos, bt, active, cos,
+                            sin, K)
+            assert got.shape == (K, 4)
+            assert torch.equal(got, want)
+            if width == K:
+                assert torch.equal(ck2, ck) and torch.equal(cv2, cv)
+            else:
+                torch.testing.assert_close(ck2, ck, atol=1e-5, rtol=1e-5)
+                torch.testing.assert_close(cv2, cv, atol=1e-5, rtol=1e-5)
+        assert graph.graph is None and graph.captures == 0
+
+
+def _rule_engine(params, case):
+    eng = LLMEngine(params, CFG, EngineConfig(
+        max_num_seqs=2, page_size=4, num_pages=32, max_seq_len=64,
+        lora_rank=4 if case == "lora" else 0), device="cpu")
+    if case != "cpu":
+        # the rule itself, as it reads on a card
+        eng.device = torch.device("cuda")
+    return eng
+
+
+@pytest.mark.parametrize("case,greedy,paged,want", [
+    ("cpu", True, True, False), ("sampled", False, True, False),
+    ("lora", True, True, False), ("gather", True, False, False),
+    ("card", True, True, True)])
+def test_decode_graph_eligibility(step_params, case, greedy, paged, want):
+    """Only a greedy burst on the paged kernel, on a CUDA card and with
+    no LoRA pool, replays the graph; a CPU engine runs every burst
+    eagerly and never builds one."""
+    eng = _rule_engine(step_params[False], case)
+    assert eng._graph_eligible(greedy, paged) is want
+    if case == "cpu":
+        eng.generate([[5, 17, 99, 3], [8, 8, 2]],
+                     SamplingParams(max_tokens=6, **GREEDY))
+        st = eng.stats()
+        assert st["decode_steps"] > 0 and st["decode_graph_steps"] == 0
+        assert st["decode_graph_captures"] == 0 and eng._graph is None
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_engine_graph_path_equals_eager_on_cpu(step_params, moe,
+                                               monkeypatch):
+    """The engine's graph path, let onto the CPU (where the step runs
+    without capture), against the eager engine: the same streams and
+    pages, with preemptions, a stop token that ends a row
+    inside a burst, and every decode step on the graph path."""
+    cfg = MOE_CFG if moe else CFG
+    params = step_params[moe]
+    ecfg = EngineConfig(max_num_seqs=3, page_size=4, num_pages=9,
+                        max_seq_len=32, decode_burst=4)
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [11, 12, 13], [21, 22, 23, 24, 25]]
+
+    def run(graphed, stop=()):
+        eng = LLMEngine(params, cfg, ecfg, device="cpu")
+        if graphed:
+            monkeypatch.setattr(eng, "_graph_eligible",
+                                lambda greedy, paged: greedy and paged)
+        out = eng.generate(prompts, SamplingParams(
+            max_tokens=16, stop_token_ids=stop, **GREEDY))
+        return out, eng
+
+    first, _ = run(False)
+    # a stop token that the first stream meets mid-burst
+    stop = (first[0][5],)
+    want, eager = run(False, stop)
+    got, eng = run(True, stop)
+    assert got == want
+    assert len(got[0]) < 16
+    st = eng.stats()
+    assert st["preemptions"] > 0
+    assert st["decode_graph_steps"] == st["decode_steps"] > 0
+    assert eager.stats()["decode_graph_steps"] == 0
+    # the graph's scratch is 4 wide, an eager burst's K wide: the CPU's
+    # plain attention rounds its sums by the width (see above)
+    _assert_pages(eng.cache.k, eng.cache.v, eager.cache.k, eager.cache.v)
 
 
 # --- sampling ---------------------------------------------------------------

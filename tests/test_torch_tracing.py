@@ -273,3 +273,95 @@ def test_server_pump_hop_and_fanout(tracer):
         assert hop.t1 <= step.t0 and hop.parent is None
     for fan, (a, b) in zip(fans, zip(steps, steps[1:])):
         assert a.t1 <= fan.t0 <= fan.t1 <= b.t0
+
+
+def _graph_anywhere(monkeypatch):
+    """Let the engine's graph path onto the CPU, where ``DecodeGraph`` runs
+    its step without capture."""
+    monkeypatch.setattr(LLMEngine, "_graph_eligible",
+                        lambda self, greedy, paged: greedy and paged)
+
+
+@pytest.mark.parametrize("graphed", [0, 1])
+def test_decode_span_says_whether_the_burst_was_graphed(tracer, params,
+                                                        monkeypatch,
+                                                        graphed):
+    if graphed:
+        _graph_anywhere(monkeypatch)
+    eng = LLMEngine(params, CFG, EngineConfig(**ECFG), device="cpu")
+    tracing.enable()
+    eng.generate(_prompts(), GREEDY)
+    tracing.disable()
+    dec = [s for s in tracing.drain()["host"] if s.name == "engine.decode"]
+    assert dec and {s.attrs["graphed"] for s in dec} == {graphed}
+    st = eng.stats()
+    assert st["decode_graph_steps"] == graphed * st["decode_steps"]
+    assert sum(s.attrs["steps"] for s in dec) == st["decode_steps"]
+
+
+def test_device_spans_off_suspends_and_restores(tracer):
+    """Inside ``device_spans_off`` a device span records its host span
+    only; the tracer's state is as it was after the block, also when the
+    block raises."""
+    for on, device in ((True, False), (False, False)):
+        tracer._TRACER.on, tracer._TRACER.device = on, device
+        with tracing.device_spans_off():
+            assert not tracer._TRACER.device
+        assert (tracer._TRACER.on, tracer._TRACER.device) == (on, device)
+    tracing.enable()
+    # device tracing as enable(device=True) leaves it, without a card
+    tracer._TRACER.device = True
+    with pytest.raises(KeyError):
+        with tracing.device_spans_off():
+            with tracing.span("inside", device=True):
+                pass
+            raise KeyError
+    assert tracer._TRACER.on and tracer._TRACER.device
+    assert not tracer._TRACER.pending
+    assert [s.name for s in tracing.drain()["host"]] == ["inside"]
+
+
+def test_annotate_sets_the_innermost_open_span(tracer):
+    tracing.annotate(x=1)                   # off: nothing to set
+    tracing.enable()
+    tracing.annotate(x=2)                   # no span open
+    with tracing.span("outer", a=1):
+        with tracing.span("inner"):
+            pass
+        tracing.annotate(b=2)
+    tracing.disable()
+    by = {s.name: s for s in tracing.drain()["host"]}
+    assert by["outer"].attrs == {"a": 1, "b": 2}
+    assert by["inner"].attrs == {}
+
+
+@pytest.mark.cuda
+def test_graph_capture_under_device_tracing_on_card(tracer):
+    """On the card, with device tracing on: the capture records no device
+    span (no op.mlp events baked into the graph), leaves the tracer as it
+    was, and the graphed bursts' engine.decode spans say graphed=1; the
+    eager prefills' op.mlp device spans are still recorded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
+    cuda_params = init_params(CFG, seed=0, device="cuda")
+    eng = LLMEngine(cuda_params, CFG, EngineConfig(**ECFG), device="cuda")
+    tracing.enable(device=True)
+    state = (tracer._TRACER.on, tracer._TRACER.device, tracer._TRACER.anchor)
+    eng.generate(_prompts(), GREEDY)
+    assert (tracer._TRACER.on, tracer._TRACER.device,
+            tracer._TRACER.anchor) == state
+    tracing.disable()
+    st = eng.stats()
+    assert st["decode_graph_captures"] == 1
+    assert st["decode_graph_steps"] == st["decode_steps"] > 0
+    rec = tracing.drain()
+    host, device = rec["host"], rec["device"]
+    dec = [s for s in host if s.name == "engine.decode"]
+    assert dec and all(s.attrs["graphed"] == 1 for s in dec)
+    # device spans: one op.mlp a layer a prefill, none from the capture
+    # (its warm-up step and its capture each ran the layer loop once)
+    by_id = {s.id: s for s in host}
+    assert len(device) == CFG.n_layers * st["prefills"]
+    for d in device:
+        assert d.name == "op.mlp"
+        assert by_id[d.parent].name == "runner.prefill", d
